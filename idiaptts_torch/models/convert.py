@@ -1,0 +1,56 @@
+"""JAX -> PyTorch weight conversion for the rnn_dyn acoustic model.
+
+The JAX model's flax parameter tree, given as nested dicts of numpy
+arrays, becomes the port's state dict.  The port names its parameters
+after the flax tree, so the conversion is a flattening with two
+adjustments:
+
+- the ``params`` collection root is dropped;
+- the JAX ``NamedForwardWrapper`` wraps its core in a ``_CallAdapter``
+  (``wrapped/inner/...``), which the port does not need
+  (``wrapped....``).
+
+Covered leaves: the Dense ``g{i}_Linear_{j}`` ``kernel (in, out)`` and
+``bias (out,)`` (``rnn_dyn.py:396-401``) and ``_BiFastLSTM``'s
+``Wx (2, D, 4F)``, ``Wh (2, F, 4F)`` and ``b (2, 4F)`` under
+``g{i}_LSTM/bi{layer}`` (``rnn_dyn.py:172-176``).  Layouts are the same
+in both packages, so no leaf is transposed.
+"""
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+
+def flatten_flax(tree, prefix=()):
+    """Nested mapping -> {path tuple: leaf}."""
+    flat = {}
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            flat.update(flatten_flax(value, path))
+        else:
+            flat[path] = value
+    return flat
+
+
+def flax_to_state_dict(variables):
+    """flax variables (``{"params": {...}}`` or the params tree itself)
+    -> ``{dotted name: float32 tensor}`` for ``load_state_dict``."""
+    tree = variables.get("params", variables) \
+        if isinstance(variables, Mapping) else variables
+    state = {}
+    for path, leaf in flatten_flax(tree).items():
+        if len(path) >= 2 and path[0] == "wrapped" and path[1] == "inner":
+            path = path[:1] + path[2:]
+        state[".".join(path)] = torch.from_numpy(
+            np.array(leaf, dtype=np.float32))
+    return state
+
+
+def load_flax_params(model, variables):
+    """Load flax variables into a port model; every parameter must be
+    matched (``strict=True``).  Returns the model."""
+    model.load_state_dict(flax_to_state_dict(variables), strict=True)
+    return model
