@@ -1,30 +1,51 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``idiaptts_torch``) on one NVIDIA
-GPU: the quickest proof that the port still builds and serves on the card.
+GPU: the quickest proof that the port still builds, serves and trains on
+the card.
 
     python3 chip_smoke.py          # from the repository root
 
-Phases (any failure raises, so the exit code is non-zero):
+Phases (a failed check is logged and recorded; the script ends with a
+non-zero exit code and no result line if any check failed, and any
+other error raises at once):
 
 1. Environment: torch/CUDA versions, nvcc, the Triton version or its
    absence, the card's name and power limit.  No CUDA device: exit 2.
-2. Build the hand kernels from ``idiaptts_torch/csrc/`` (nvcc, ctypes).
-3. Each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (T = 512 frames; fixture batch B = 6 and the 8x
-   capacity batch B = 48), with CUDA-event times for both.
-4. The full-width slice: the Interspeech'18 acoustic model
+2. Build the hand kernels from ``idiaptts_torch/csrc/`` (one nvcc per
+   source, in parallel, then a link; loaded with ctypes).
+3. The serving kernels against their plain PyTorch versions on the card
+   at the serving path's shapes (T = 512 frames; fixture batch B = 6 and
+   the 8x capacity batch B = 48), with CUDA-event times for both and for
+   the PyTorch library call that computes the same function.
+4. The serving path at full width: the Interspeech'18 acoustic model
    ``RNNDYN-2_RELU_1024-3_BiLSTM_512-1_FC_67`` (141 question inputs,
    random weights from a seeded ``torch.Generator``; the repository holds
    no trained weights), MLPG variances from the fixture corpus, served by
    ``SynthesisServer`` over the port's pipeline on ``cuda`` for the six
    fixture utterances submitted concurrently.  Launch counters are reset
-   just before and read just after, and every kernel must have launched.
-   The card's result is held against the port's CPU path on one
-   utterance, then the slice is timed (label -> waveform xRT at B = 6 and
-   B = 48, and per-stage ms).
+   just before and read just after, and every serving kernel must have
+   launched.  The card's result is held against the port's CPU path on
+   one utterance, then the slice is timed (label -> waveform xRT at
+   B = 6 and B = 48, and per-stage ms).
+5. The training kernels against their plain versions at the training
+   benchmark's shapes (T = 1024, D = 1024, F = 512, B = 8 and 32): the
+   training recurrence's h bit-identical to the inference kernel's, its
+   gates and cells, the reverse-time backward's dz (float32 and bf16
+   residuals), and one layer's autograd gradients against autograd
+   through the plain layer; CUDA-event times beside cuDNN's LSTM.
+6. The training path at full width: ``AcousticModelTrainer`` on the
+   fixture corpus on ``cuda`` (3 epochs, batch 2, 25% validation), with
+   the launch counters reset just before ``train`` and read just after;
+   every training kernel must have launched, the training loss must be
+   finite and fall, and the last checkpoint must reload to the same
+   parameters.  One train step's loss and gradients are held against the
+   port's CPU path on one utterance.  Then the handler's train step is
+   timed at B = 8 and 32, T = 1024, on seeded random data (CUDA events;
+   frames/s, TFLOP/s, and device time per kernel from torch.profiler).
 
-The last three lines of standard output are the kernels JSON, the
-``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": ...}``.
+The last three lines of standard output are the kernels JSON (every
+kernel with its bound, its plain version's and the library call's time),
+the ``nvidia-smi`` name/power-limit line and ``{"ok": true, "device": ...}``.
 """
 
 import copy
@@ -33,6 +54,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -50,7 +72,17 @@ D_IN, F_HIDDEN = 1024, 512       # BiLSTM input and hidden width
 # measured 8.7e-4 (B=6) and 1.1e-3 (B=48) on an H100.
 REC_TOL = 5e-3
 
-# Where each hand kernel comes from, for the kernels JSON line.
+# Training benchmark shapes (bench_training.py:35-114): bucket T, batches,
+# question width; the full-width model's output width.
+TRAIN_T = 1024
+TRAIN_BATCHES = (8, 32)
+TRAIN_D_IN, TRAIN_D_OUT = 409, 67
+TRAIN_EPOCHS = 3
+
+# Where each hand kernel comes from, for the kernels JSON line.  The
+# projection kernel is the projection half of both _bilstm_layer_kernel
+# (K6, :590) and _bilstm_layer_kernel_train (K7, :742); the training
+# recurrence is _bilstm_kernel_train (K4) and the recurrence half of K7.
 KERNEL_SOURCES = {
     "banded_solve": ("idiaptts_torch/csrc/banded_solve.cu",
                      "idiaptts_tpu/ops/pallas_mlpg.py:170"),
@@ -58,7 +90,25 @@ KERNEL_SOURCES = {
                           "idiaptts_tpu/ops/pallas_lstm.py:76"),
     "bilstm_proj": ("idiaptts_torch/csrc/bilstm_proj.cu",
                     "idiaptts_tpu/ops/pallas_lstm.py:590"),
+    "bilstm_recurrence_train": ("idiaptts_torch/csrc/bilstm_recurrence.cu",
+                                "idiaptts_tpu/ops/pallas_lstm.py:161"),
+    "bilstm_bwd": ("idiaptts_torch/csrc/bilstm_bwd.cu",
+                   "idiaptts_tpu/ops/pallas_lstm.py:264"),
 }
+SERVE_KERNELS = ("banded_solve", "bilstm_proj", "bilstm_recurrence")
+TRAIN_KERNELS = ("bilstm_proj", "bilstm_recurrence_train", "bilstm_bwd",
+                 "bilstm_recurrence")
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# the least time the card could take for a kernel's work is the larger of
+# its bytes over the HBM rate and its operations over the peak rate of
+# their type.
+PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16 operands
+PEAK_F32_FLOPS = 67e12       # float32 outside the tensor cores
+PEAK_HBM_BYTES = 3.35e12
+
+# Checks that failed; the script exits non-zero if any did.
+FAILURES = []
 
 
 def log(*args):
@@ -132,12 +182,73 @@ def build():
 
 # -- phase 3 -----------------------------------------------------------------
 
+def fail(message):
+    """Record a failed check and go on, so one run shows every failure."""
+    log("  FAIL:", message)
+    FAILURES.append(message)
+
+
 def _check(name, err, tol, what):
     log("  {:<18s} {:<34s} max|d| = {:.3e}  (tol {:.1e})".format(
         name, what, err, tol))
     if not err <= tol:
-        raise AssertionError("{} {}: max|d| {:.3e} > tol {:.1e}".format(
-            name, what, err, tol))
+        fail("{} {}: max|d| {:.3e} > tol {:.1e}".format(name, what, err,
+                                                         tol))
+
+
+def bound(flops, flop_peak, nbytes):
+    """(bound_ms, bound_by): the least time for ``flops`` operations at
+    ``flop_peak`` and ``nbytes`` of HBM traffic, and which one sets it."""
+    ops_ms = flops / flop_peak * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def lstm_bound(T, R, D, F, what, res_bytes=4):
+    """Bound of one BiLSTM kernel's work over T steps of R rows (2*Bp):
+    the bf16 products it needs and each input read and output written
+    once.  ``what``: "proj" (bf16(x Wx) + b), "rec" (inference
+    recurrence), "rec_train" (plus the gates and cells in
+    ``res_bytes``-byte residuals), "bwd" (dz from the residuals, the
+    upstream dL/dh and Wh)."""
+    G = 4 * F
+    if what == "proj":
+        return bound(2.0 * T * R * D * G, PEAK_BF16_FLOPS,
+                     T * R * D * 2 + 2 * D * G * 2 + 2 * G * 4
+                     + T * R * G * 4)
+    rec_flops = 2.0 * T * R * F * G
+    wh_bytes = 2 * F * G * 2
+    if what == "rec":
+        return bound(rec_flops, PEAK_BF16_FLOPS,
+                     T * R * G * 4 + wh_bytes + T * R * F * 4)
+    if what == "rec_train":
+        return bound(rec_flops, PEAK_BF16_FLOPS,
+                     T * R * G * 4 + wh_bytes + T * R * F * 4
+                     + T * R * (G + F) * res_bytes)
+    if what == "bwd":
+        return bound(rec_flops, PEAK_BF16_FLOPS,
+                     T * R * (G + 2 * F) * res_bytes + wh_bytes
+                     + T * R * G * 4)
+    raise ValueError(what)
+
+
+def cudnn_lstm(torch, D, F, device):
+    """cuDNN's bidirectional LSTM in bf16 with the forget-gate bias +1
+    folded into its bias: the library call that computes a BiLSTM layer
+    (input projection included, as cuDNN always does).  Timed as a
+    yardstick only; the port never calls it.  PyTorch keeps bf16 weights
+    out of cuDNN's flat buffer, so each call also compacts them (12.6 MB
+    at D=1024, F=512), inside the time taken."""
+    lstm = torch.nn.LSTM(D, F, bidirectional=True).to(device,
+                                                      torch.bfloat16)
+    with torch.no_grad():
+        for name, p in lstm.named_parameters():
+            if name.startswith("bias_ih"):
+                p[F:2 * F] += 1.0
+            p.requires_grad_(False)
+    lstm.flatten_parameters()
+    return lstm
 
 
 def bf16_ulp(torch, x):
@@ -152,7 +263,7 @@ def kernel_checks(torch, pipeline, device):
     from idiaptts_torch.ops import cuda_lstm, cuda_mlpg
     gen = torch.Generator(device=device).manual_seed(1234)
     T, F, D = T_BUCKET, F_HIDDEN, D_IN
-    results = {k: {} for k in KERNEL_SOURCES}
+    results = {k: {} for k in SERVE_KERNELS}
     factors, _ = pipeline.factors_for(T)
     n_feat = factors.shape[-1]
 
@@ -171,8 +282,13 @@ def kernel_checks(torch, pipeline, device):
         # conditioning; measured 2.5e-5 and 3.8e-5 on an H100).
         _check("banded_solve", err, 1e-5 * scale,
                "T={} L={}".format(T, L))
+        # Per element: forward and back substitution, 5 float32
+        # operations each; b and three factor rows in, x out.
+        bound_ms, bound_by = bound(10.0 * T * L, PEAK_F32_FLOPS,
+                                   5 * T * L * 4)
         results["banded_solve"][B] = dict(
             shape="T={},L={}".format(T, L), max_abs_err=err,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             ms=cuda_ms(torch, lambda: cuda_mlpg.solve_banded(
                 b, l0, l1, l2), 20),
             plain_ms=cuda_ms(torch, lambda: cuda_mlpg.solve_banded_plain(
@@ -206,14 +322,20 @@ def kernel_checks(torch, pipeline, device):
             "{:.4%} of products one bf16 ulp apart".format(
                 T, 2 * B, D, 4 * F, diff.max().item(), flips))
         if excess > 0 or flips > 1e-2:
-            raise AssertionError("bilstm_proj products differ by more than "
-                                 "rare one-ulp bf16 rounding flips")
+            fail("bilstm_proj products differ by more than rare one-ulp "
+                 "bf16 rounding flips (B={})".format(B))
         # The bias is one float32 add, the same in both.
         if not torch.equal(xp_k, p_k + bias_rows):
-            raise AssertionError("bilstm_proj bias add differs")
+            fail("bilstm_proj bias add differs (B={})".format(B))
+        # Library yardstick: one bf16 batched GEMM over the directions.
+        x_dir = xin.reshape(T, 2, B, D).transpose(0, 1).reshape(
+            2, T * B, D).contiguous()
         results["bilstm_proj"][B] = dict(
             shape="T={},R={},D={},N={}".format(T, 2 * B, D, 4 * F),
             max_abs_err=diff.max().item(),
+            library_ms=cuda_ms(torch, lambda: torch.bmm(x_dir, wx), 20),
+            **dict(zip(("bound_ms", "bound_by"),
+                       lstm_bound(T, 2 * B, D, F, "proj"))),
             ms=cuda_ms(torch, lambda: cuda_lstm.bilstm_projection_tmajor(
                 xin, wx, bias), 20),
             plain_ms=cuda_ms(torch, lambda: cuda_lstm
@@ -230,9 +352,15 @@ def kernel_checks(torch, pipeline, device):
         rec_err = (h_k - h_p).abs().max().item()
         _check("bilstm_recurrence", rec_err, REC_TOL,
                "T={} R={} F={}".format(T, 2 * B, F))
+        lstm = cudnn_lstm(torch, D, F, device).eval()
+        x_seq = xin[:, :B].contiguous()
+        with torch.no_grad():
+            lib_ms = cuda_ms(torch, lambda: lstm(x_seq), 5)
         results["bilstm_recurrence"][B] = dict(
             shape="T={},R={},F={}".format(T, 2 * B, F),
-            max_abs_err=rec_err,
+            max_abs_err=rec_err, library_ms=lib_ms,
+            **dict(zip(("bound_ms", "bound_by"),
+                       lstm_bound(T, 2 * B, D, F, "rec"))),
             ms=cuda_ms(torch, lambda: cuda_lstm.bilstm_recurrence_tmajor(
                 xp_p, wh_cat), 5),
             plain_ms=cuda_ms(torch, lambda: cuda_lstm
@@ -409,6 +537,353 @@ def time_slice(torch, pipeline, model, questions, card):
     return out
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+def _rel(x, ref):
+    """max|x - ref| over max(1, max|ref|)."""
+    x, ref = x.float(), ref.float()
+    return (x - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+
+
+def train_kernel_checks(torch, device, T=TRAIN_T, batches=TRAIN_BATCHES,
+                        D=D_IN, F=F_HIDDEN, reps=5):
+    """The training kernels against their plain versions at the training
+    benchmark's shapes.  Returns {kernel name: {B: measurements}} for the
+    training recurrence, the backward and (at these shapes) the
+    projection."""
+    from idiaptts_torch.ops import cuda_lstm
+    gen = torch.Generator(device=device).manual_seed(4321)
+    G = 4 * F
+    out = {"bilstm_recurrence_train": {}, "bilstm_bwd": {},
+           "bilstm_proj": {}}
+    lstm = cudnn_lstm(torch, D, F, device)
+    for B in batches:
+        R = 2 * B
+        shape = "T={},R={},F={}".format(T, R, F)
+        xin = torch.randn(T, R, D, generator=gen,
+                          device=device).to(torch.bfloat16)
+        wx = (torch.randn(2, D, G, generator=gen, device=device)
+              / np.sqrt(D)).to(torch.bfloat16)
+        bias = 0.1 * torch.randn(2, G, generator=gen, device=device)
+        wh = (torch.randn(2 * F, G, generator=gen, device=device)
+              / np.sqrt(F)).to(torch.bfloat16)
+        xp = cuda_lstm.bilstm_projection_tmajor(xin, wx, bias)
+        h_inf = cuda_lstm.bilstm_recurrence_tmajor(xp, wh)
+
+        # K4: training recurrence.  h shares the inference kernel's
+        # template body and float32 carries: bit-identical.  Gates and
+        # cells against the plain version: the recurrence's tolerance
+        # (float32 sums in another order, rare bf16 flips of h), plus one
+        # bf16 ulp of a value in (-1, 1) for bf16 residuals; cells
+        # relative to their largest magnitude.
+        res = {}
+        for res_bf16 in ((False, True) if B == batches[0] else (False,)):
+            h, a, c = cuda_lstm.bilstm_recurrence_train_tmajor(xp, wh,
+                                                               res_bf16)
+            tag = "bf16 res" if res_bf16 else "f32 res"
+            if not torch.equal(h, h_inf):
+                fail("bilstm_recurrence_train h differs from the inference "
+                     "kernel's h (B={}, {})".format(B, tag))
+            else:
+                log("  bilstm_recurrence_train B={} {}: h torch.equal to "
+                    "bilstm_recurrence's h".format(B, tag))
+            h_p, a_p, c_p = cuda_lstm.recurrence_train_tmajor_plain(
+                xp, wh, res_bf16)
+            tol = REC_TOL + (2.0 ** -8 if res_bf16 else 0.0)
+            errs = {"h": (h - h_p).abs().max().item(),
+                    "a": (a.float() - a_p.float()).abs().max().item(),
+                    "c": _rel(c, c_p)}
+            for k, e in errs.items():
+                _check("rec_train " + k, e, tol, "{} {}".format(shape, tag))
+            res[res_bf16] = (a, c, errs)
+        a, c, errs = res[False]
+        rb_ms = cuda_ms(torch, lambda: cuda_lstm
+                        .bilstm_recurrence_train_tmajor(xp, wh), reps)
+        lstm.train()
+        x_seq = xin[:, :B].detach().contiguous().requires_grad_()
+        lib_fwd = cuda_ms(torch, lambda: lstm(x_seq), reps)
+        out["bilstm_recurrence_train"][B] = dict(
+            shape=shape, max_abs_err=max(errs.values()), ms=rb_ms,
+            plain_ms=cuda_ms(torch, lambda: cuda_lstm
+                             .recurrence_train_tmajor_plain(xp, wh), 1),
+            library_ms=lib_fwd,
+            **dict(zip(("bound_ms", "bound_by"),
+                       lstm_bound(T, R, D, F, "rec_train"))))
+
+        # K5: reverse-time backward on the kernel's own residuals.  dz
+        # feeds the next step rounded to bf16, so a rounding flip moves
+        # dh by one bf16 ulp of dz times |w|; relative to dz's largest
+        # entry.
+        gout = 0.1 * torch.randn(T, R, F, generator=gen, device=device)
+        bwd_errs = {}
+        for res_bf16, (ra, rc, _) in res.items():
+            dz = cuda_lstm.dz_bwd_tmajor(ra, rc, gout, wh)
+            dz_p = cuda_lstm.dz_bwd_tmajor_plain(ra, rc, gout, wh)
+            e = _rel(dz, dz_p)
+            _check("bilstm_bwd dz", e, 1e-3, "{} {}".format(
+                shape, "bf16 res" if res_bf16 else "f32 res"))
+            bwd_errs[res_bf16] = (dz - dz_p).abs().max().item()
+        y_seq, _ = lstm(x_seq)
+        gy = torch.randn(y_seq.shape, generator=gen, device=device,
+                         dtype=y_seq.dtype)
+        out["bilstm_bwd"][B] = dict(
+            shape=shape, max_abs_err=bwd_errs[False],
+            ms=cuda_ms(torch, lambda: cuda_lstm.dz_bwd_tmajor(
+                a, c, gout, wh), reps),
+            plain_ms=cuda_ms(torch, lambda: cuda_lstm.dz_bwd_tmajor_plain(
+                a, c, gout, wh), 1),
+            library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                y_seq, x_seq, gy, retain_graph=True), reps),
+            **dict(zip(("bound_ms", "bound_by"),
+                       lstm_bound(T, R, D, F, "bwd"))))
+        if True in bwd_errs:
+            out["bilstm_bwd"][B]["max_abs_err_bf16_residuals"] = \
+                bwd_errs[True]
+        del y_seq, x_seq
+
+        # K7 = the projection kernel at these shapes, then K4.
+        x_dir = xin.reshape(T, 2, B, D).transpose(0, 1).reshape(
+            2, T * B, D).contiguous()
+        out["bilstm_proj"][B] = dict(
+            shape="T={},R={},D={},N={}".format(T, R, D, G),
+            ms=cuda_ms(torch, lambda: cuda_lstm.bilstm_projection_tmajor(
+                xin, wx, bias), 10),
+            plain_ms=cuda_ms(torch, lambda: cuda_lstm
+                             .projection_tmajor_plain(xin, wx, bias), 10),
+            library_ms=cuda_ms(torch, lambda: torch.bmm(x_dir, wx), 10),
+            **dict(zip(("bound_ms", "bound_by"),
+                       lstm_bound(T, R, D, F, "proj"))))
+
+        if B == batches[0]:
+            layer_gradients(torch, xin, wx, wh, bias, gen)
+        del xp, h_inf, res, a, c
+    for name, by_b in out.items():
+        for B, r in by_b.items():
+            log("  {:<24s} B={:<3d} {:<24s} kernel {:9.4f} ms | plain "
+                "{:9.4f} ms | library {:9.4f} ms | bound {:8.4f} ms ({})"
+                .format(name, B, r["shape"], r["ms"], r["plain_ms"],
+                        r["library_ms"], r["bound_ms"], r["bound_by"]))
+    return out
+
+
+def layer_gradients(torch, xin, wx, wh, bias, gen):
+    """One layer's gradients through BiLSTMLayerFn (projection kernel,
+    training recurrence, backward kernel, bf16 GEMMs) against autograd
+    through the plain layer, for a random loss weighting of h.  Bound:
+    2e-2 of each gradient's largest entry (bf16 operands in both; the
+    plain path rounds in other places)."""
+    from idiaptts_torch.ops import cuda_lstm
+    T, R, _ = xin.shape
+    F = wh.shape[0] // 2
+    wgt = torch.randn(T, R, F, generator=gen, device=xin.device)
+    args = (xin, wx.float(), wh.float(), bias)
+    ours = [t.clone().requires_grad_() for t in args]
+    plain = [t.clone().requires_grad_() for t in args]
+    (cuda_lstm.BiLSTMLayerFn.apply(*ours, False) * wgt).sum().backward()
+    (cuda_lstm.scan_layer_tmajor(*plain) * wgt).sum().backward()
+    for name, o, p in zip(("dxin", "dWx", "dWh", "db"), ours, plain):
+        err = (o.grad.float() - p.grad.float()).abs().max().item() \
+            / p.grad.float().abs().max().item()
+        _check("layer grad " + name, err, 2e-2,
+               "T={} R={} (relative to max)".format(T, R))
+
+
+# -- phase 6 -----------------------------------------------------------------
+
+def make_trainer(torch, device, workdir, epochs=TRAIN_EPOCHS):
+    """AcousticModelTrainer on the fixture corpus with its default model,
+    the full-width Interspeech'18 model."""
+    from idiaptts_torch.train.acoustic import AcousticModelTrainer
+    _, _, num_q = load_corpus()
+    with open(os.path.join(FIXTURES, "file_id_list.txt")) as f:
+        ids = [line.strip() for line in f if line.strip()]
+    hp = AcousticModelTrainer.create_hparams()
+    hp.device = str(device)
+    hp.num_questions = num_q
+    hp.num_coded_sps = NUM_SPS
+    hp.epochs = epochs
+    hp.batch_size_train = 2
+    hp.batch_size_val = 2
+    hp.val_set_perc = 0.25
+    hp.test_set_perc = 0.0
+    hp.seed = 1
+    hp.out_dir = workdir
+    hp.model_name = "acoustic"
+    trainer = AcousticModelTrainer(
+        hp, ids, dir_question_labels=os.path.join(FIXTURES, "questions"),
+        dir_world_features=os.path.join(FIXTURES, "WORLD"))
+    trainer.init(hp)
+    return trainer, hp
+
+
+def check_training(torch, trainer, hp, train_loss, val_loss):
+    """Loss finite and falling; the last checkpoint reloads to the same
+    parameters."""
+    from idiaptts_torch.train.handler import ModularModelHandler
+    log("  train loss per epoch:", train_loss, "| validation:", val_loss)
+    if not (np.all(np.isfinite(train_loss)) and np.all(np.isfinite(
+            val_loss))):
+        fail("non-finite training or validation loss")
+    if not train_loss[-1] < train_loss[0]:
+        fail("training loss did not fall: {}".format(train_loss))
+    fresh = ModularModelHandler(device=trainer.model_handler.device)
+    fresh.load_checkpoint(hp.out_dir, hp.model_name, last=True)
+    ours = trainer.model_handler.model.state_dict()
+    theirs = fresh.model.state_dict()
+    same = sorted(ours) == sorted(theirs) and all(
+        torch.equal(ours[k], theirs[k]) for k in ours)
+    if not same:
+        fail("checkpoint params_last does not reload to the same "
+             "parameters")
+    else:
+        log("  checkpoint params_last reloads to the same {} tensors"
+            .format(len(ours)))
+
+
+def train_step_against_cpu(torch, trainer):
+    """One training forward/backward on the card against the port's CPU
+    path (plain versions) on one fixture utterance, from the same
+    weights.  Loss within 1e-2 relative; each gradient within 2e-2 of
+    its norm (bf16 operands on both sides, rounded in other places)."""
+    from idiaptts_torch.data.dataset import collate_batch
+    from idiaptts_torch.train.handler import ModularModelHandler
+    card = trainer.model_handler
+    cpu = ModularModelHandler(device="cpu")
+    cpu.model = copy.deepcopy(card.model).to("cpu")
+    cpu.losses = card.losses
+    uid = trainer.id_list_train[0]
+    batch = collate_batch([trainer.dataset_train.get_id_name(uid)[0]])
+    totals, grads = [], []
+    for h in (card, cpu):
+        h.model.train()
+        for p in h.model.parameters():
+            p.grad = None
+        data, lengths = h._batch_to_model_input(batch)
+        total, _ = h._losses_total(h._apply_model(data, lengths, True), 0)
+        total.backward()
+        totals.append(total.item())
+        grads.append({n: p.grad.detach().float().cpu()
+                      for n, p in h.model.named_parameters()})
+    T = batch["questions"].shape[1]
+    _check("train step loss", abs(totals[0] - totals[1]) / abs(totals[1]),
+           1e-2, "B=1 T={} (relative)".format(T))
+    worst = max((torch.linalg.vector_norm(grads[0][n] - g)
+                 / torch.linalg.vector_norm(g)).item()
+                for n, g in grads[1].items())
+    _check("train step grads", worst, 2e-2,
+           "B=1 T={} (worst |dg|/|g|)".format(T))
+    for p in card.model.parameters():
+        p.grad = None
+
+
+def fwd_flops_per_frame(D_in, D_out, F=F_HIDDEN):
+    """bench_training.py:139-143: dense layers, three BiLSTMs (projection
+    and recurrence per direction) and the FC head."""
+    return (2 * (D_in * 1024 + 1024 * 1024)
+            + 3 * 2 * (2 * 1024 * 4 * F + 2 * F * 4 * F)
+            + 2 * 1024 * D_out)
+
+
+def profile_step(torch, step, steps=2):
+    """Device time per step by kernel name, from torch.profiler over
+    ``steps`` steps; {} when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3 / steps
+        if ms > 0:
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + ms
+    return per_kernel
+
+
+def time_train_step(torch, device, card, batches=TRAIN_BATCHES, T=TRAIN_T,
+                    reps=5):
+    """The handler's train step (forward, masked MSE, backward, global
+    norm, Adam) at full width on seeded random data already on the card
+    (set-up, as a data loader's prefetch would place it)."""
+    from idiaptts_torch.hparams import ExtendedHParams
+    from idiaptts_torch.models.losses import NamedLoss
+    from idiaptts_torch.models.rnn_dyn import convert_legacy_string
+    from idiaptts_torch.train.handler import ModularModelHandler
+    handler = ModularModelHandler(device=device)
+    cfg = convert_legacy_string(
+        "RNNDYN-2_RELU_1024-3_BiLSTM_512-1_FC_{}".format(TRAIN_D_OUT),
+        TRAIN_D_IN)
+    cfg.input_names = ("questions",)
+    cfg.output_names = ("pred",)
+    handler.create_model(cfg)
+    hp = ExtendedHParams.create_hparams()
+    hp.learning_rate = 1e-3
+    handler.set_optimiser(hp)
+    handler.set_losses([NamedLoss.Config(
+        "mse", "MSELoss", ("pred", "target"), seq_mask="_seq_mask",
+        reduction="mean_per_frame")])
+    flops = 3 * fwd_flops_per_frame(TRAIN_D_IN, TRAIN_D_OUT)
+    out = {}
+    for B in batches:
+        batch = {
+            "questions": torch.from_numpy(np.random.RandomState(0).randn(
+                B, T, TRAIN_D_IN).astype(np.float32)).to(device),
+            "target": torch.from_numpy(np.random.RandomState(1).randn(
+                B, T, TRAIN_D_OUT).astype(np.float32)).to(device),
+            "_seq_mask": torch.ones(B, T, 1, device=device),
+            "_lengths": {"questions": [T] * B}}
+
+        def step():
+            handler.process_batches([batch])
+
+        torch.cuda.reset_peak_memory_stats(device)
+        ms = cuda_ms(torch, step, reps)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        fps = B * T / (ms / 1e3)
+        kernels = profile_step(torch, step)
+        busy = sum(kernels.values())
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
+        # Demangled kernel names; the training recurrence is the
+        # template instance with TRAIN = true.
+        ours = {name: sum(v for n, v in kernels.items() if pattern in n)
+                for name, pattern in (
+                    ("bilstm_proj", "bilstm_proj_kernel"),
+                    ("bilstm_recurrence_train",
+                     "bilstm_recurrence_kernel<true"),
+                    ("bilstm_bwd", "bilstm_bwd_kernel"))}
+        out[B] = dict(T=T, step_ms=ms, frames_per_s=fps,
+                      tflops_per_s=flops * fps / 1e12,
+                      device_busy_ms=busy if kernels else None,
+                      idle_share=1.0 - busy / ms if kernels else None,
+                      port_kernels_ms=ours if kernels else None,
+                      top_kernels_ms=top, peak_memory_gb=peak_gb)
+        log("  train step B={} T={}: {:.3f} ms, {:.0f} frames/s, {:.2f} "
+            "TFLOP/s, peak {:.1f} GB [{}]".format(
+                B, T, ms, fps, out[B]["tflops_per_s"], peak_gb, card))
+        if kernels:
+            log("    device busy {:.3f} ms/step (idle {:.1%}); port "
+                "kernels ms/step: {}".format(busy, 1.0 - busy / ms,
+                                            json.dumps(ours)))
+            for name, v in top.items():
+                log("    {:9.3f} ms  {:5.1%}  {}".format(v, v / busy,
+                                                        name[:100]))
+        else:
+            log("    torch.profiler recorded no device time: per-kernel "
+                "ms not measured")
+    return out
+
+
+def require_launches(launches, names, path):
+    """Every kernel of a path must have launched during its run."""
+    missing = [k for k in names if launches.get(k, 0) < 1]
+    if missing:
+        fail("kernels not launched on the {} path: {}".format(
+            path, ", ".join(missing)))
+
+
 def main():
     import torch
 
@@ -440,35 +915,71 @@ def main():
     dispatch.reset_counts()
     wavs, stats = serve(pipeline, model, questions)
     torch.cuda.synchronize()
-    launches = dispatch.counts()
-    log("  launches during the served run:", json.dumps(launches))
+    serve_launches = dispatch.counts()
+    log("  launches during the served run:", json.dumps(serve_launches))
     log("  server stats:", json.dumps(stats))
-    missing = [k for k in KERNEL_SOURCES if launches.get(k, 0) < 1]
-    if missing:
-        raise AssertionError("kernels not launched on the main path: "
-                             + ", ".join(missing))
+    require_launches(serve_launches, SERVE_KERNELS, "serving")
     check_waveforms(wavs, questions, pipeline.hop)
     check_against_cpu(torch, pipeline, make_pipeline("cpu"), model,
                       questions)
     timing = time_slice(torch, pipeline, model, questions, card)
     log("  slice timing:", json.dumps({str(k): v for k, v in
                                         timing.items()}))
+    del pipeline, model
+
+    log("== phase 5: training kernels against their plain versions, T={} "
+        "D={} F={} [{}]".format(TRAIN_T, D_IN, F_HIDDEN, card))
+    tres = train_kernel_checks(torch, device)
+    torch.cuda.empty_cache()
+
+    log("== phase 6: AcousticModelTrainer at full width on {} ({} epochs, "
+        "batch 2, 25% validation)".format(device, TRAIN_EPOCHS))
+    with tempfile.TemporaryDirectory() as workdir:
+        trainer, hp = make_trainer(torch, device, workdir)
+        dispatch.reset_counts()
+        val_loss, train_loss = trainer.train(hp)
+        torch.cuda.synchronize()
+        train_launches = dispatch.counts()
+        log("  launches during training:", json.dumps(train_launches))
+        require_launches(train_launches, TRAIN_KERNELS, "training")
+        check_training(torch, trainer, hp, train_loss, val_loss)
+        train_step_against_cpu(torch, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    step_timing = time_train_step(torch, device, card)
+    log("  train step timing:", json.dumps({str(k): v for k, v in
+                                             step_timing.items()}))
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
-        r = kres[name][BATCHES[0]]
+        if name in kres:        # serving shapes (phase 3)
+            first, second = kres[name][BATCHES[0]], kres[name][BATCHES[1]]
+        else:                   # training shapes (phase 5)
+            first = tres[name][TRAIN_BATCHES[0]]
+            second = tres[name][TRAIN_BATCHES[1]]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[name],
-                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"], "shape": r["shape"],
-                 "card": card}
-        entry["capacity_batch"] = {
-            k: v for k, v in kres[name][BATCHES[1]].items()}
-        if "layer_ms" in r:
-            entry.update(layer_max_abs_err=r["layer_max_abs_err"],
-                         layer_ms=r["layer_ms"],
-                         layer_plain_ms=r["layer_plain_ms"])
+                 "replaces": replaces,
+                 "launches": serve_launches[name] + train_launches[name],
+                 "launches_by_path": {"serve": serve_launches[name],
+                                      "train": train_launches[name]},
+                 **{k: first[k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms", "shape")},
+                 "card": card, "second_batch": second}
+        if name == "bilstm_proj":
+            entry["train_shapes"] = tres[name]
+            entry["also_replaces"] = "idiaptts_tpu/ops/pallas_lstm.py:742"
+        if name == "bilstm_recurrence_train":
+            entry["also_replaces"] = "idiaptts_tpu/ops/pallas_lstm.py:742"
+        for k in ("layer_max_abs_err", "layer_ms", "layer_plain_ms"):
+            if k in first:
+                entry[k] = first[k]
         kernels.append(entry)
+    if FAILURES:
+        log("== {} check(s) failed:".format(len(FAILURES)))
+        for message in FAILURES:
+            log("  ", message)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,30 @@
 // BiLSTM recurrence over precomputed input projections, both directions,
-// all T steps, in one persistent launch.
+// all T steps, in one persistent launch; inference and training mode.
 //
 // Replaces idiaptts_tpu/ops/pallas_lstm.py:_bilstm_kernel (wrapper
-// _recurrence_tmajor) and the recurrence half of _bilstm_layer_kernel.
+// _recurrence_tmajor) and the recurrence half of _bilstm_layer_kernel
+// (entry point idt_bilstm_recurrence), and _bilstm_kernel_train (wrapper
+// _recurrence_train_tmajor) and the recurrence half of
+// _bilstm_layer_kernel_train (entry point idt_bilstm_recurrence_train).
 // Per step, for every row (one sequence of one direction):
 //   gates = xp_t + bf16(h_{t-1}) . bf16(Wh_d)     (float32 accumulation)
 //   c = sigmoid(f + 1) c + sigmoid(i) tanh(g);  h = sigmoid(o) tanh(c)
 // gate order [i, f, g, o]; h and c carried in float32, h rounded to bf16
 // only as the next step's matmul operand (pallas_lstm.py:101).
 //
+// Training mode additionally streams out the backward kernel's residuals
+// (pallas_lstm.py:182-195): the post-activation gates
+// a[t, row, q*F + u] = [sigmoid(i), sigmoid(f + 1), tanh(g), sigmoid(o)]
+// and the cells c[t, row, u], in float32 or bf16.  The carries stay
+// float32 and both modes are one template body, so training-mode h is
+// bit-identical to inference-mode h on the same inputs.
+//
 // Layout (the JAX package's time-major layout):
 //   xp     (T, R, 4F) float32, R = 2*Bp rows: [fwd Bp | bwd Bp]
 //   wh     (2F, 4F) bf16 = vstack(Wh_fwd, Wh_bwd)
 //   out    (T, R, F) float32 hidden states
+//   a      (T, R, 4F) float32 or bf16 gates (training mode only)
+//   c      (T, R, F) float32 or bf16 cells (training mode only)
 //   hbuf   (2, R, F) bf16 scratch: h_{t-1} / h_t, double-buffered
 //   bar    one zeroed uint32: the grid barrier's arrival counter
 //
@@ -40,56 +52,27 @@
 // 128 SMs.  At small batch a step costs the grid barrier, the L2 round
 // trip of h and the dependent FMA chain, not bandwidth; at Bp = 48 the
 // CUDA-core FMAs themselves.  This first version keeps to CUDA-core FMAs
-// (no mma) for simplicity; tensor-core steps are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// (no mma) for simplicity; tensor-core steps are later work.  Training
+// mode adds 5F residual writes per row and step (T*R*5F elements per
+// layer, 0.67 GB of float32 at Bp = 32, T = 1024, F = 512), which the
+// card's bandwidth absorbs beside the sequential steps.
+#include "persistent.cuh"
 
 namespace {
+
+using idt::sigmoidf_;
 
 constexpr int UNITS = 8;            // hidden units per block
 constexpr int COLS = 4 * UNITS;     // gate columns per block, one per lane
 constexpr int KS = 32;              // k-slice per warp
 constexpr int MAX_THREADS = 512;    // F <= 512
 
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ void unpack_bf16x8(const uint4& v, float4& lo,
-                                              float4& hi) {
-  // bf16 -> f32 is a 16-bit left shift of the bit pattern.
-  lo.x = __uint_as_float(v.x << 16);
-  lo.y = __uint_as_float(v.x & 0xffff0000u);
-  lo.z = __uint_as_float(v.y << 16);
-  lo.w = __uint_as_float(v.y & 0xffff0000u);
-  hi.x = __uint_as_float(v.z << 16);
-  hi.y = __uint_as_float(v.z & 0xffff0000u);
-  hi.z = __uint_as_float(v.w << 16);
-  hi.w = __uint_as_float(v.w & 0xffff0000u);
-}
-
-// Grid-wide barrier on a monotonically increasing arrival counter: the
-// n-th barrier (n = 1, 2, ...) waits for n * gridDim.x arrivals.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    while (*reinterpret_cast<volatile unsigned int*>(counter) < target) {
-      __nanosleep(20);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
+template <bool TRAIN, typename ResT>
 __global__ void __launch_bounds__(MAX_THREADS)
 bilstm_recurrence_kernel(const float* __restrict__ xp,
                          const __nv_bfloat16* __restrict__ wh,
-                         float* __restrict__ out, __nv_bfloat16* hbuf,
+                         float* __restrict__ out, ResT* __restrict__ a_out,
+                         ResT* __restrict__ c_out, __nv_bfloat16* hbuf,
                          unsigned int* bar, int T, int Bp, int F) {
   extern __shared__ __align__(16) float smem[];
   const int NW = blockDim.x / 32;   // warps = F / 32
@@ -149,7 +132,7 @@ bilstm_recurrence_kernel(const float* __restrict__ xp,
         if (t > 0 && rl < nrows) {
           const uint4 v = __ldcg(reinterpret_cast<const uint4*>(
               hprev + static_cast<size_t>(d * Bp + r0 + rl) * F + k8));
-          unpack_bf16x8(v, lo, hi);
+          idt::unpack_bf16x8(v, lo, hi);
         }
         *reinterpret_cast<float4*>(&h_s[rl * F + k8]) = lo;
         *reinterpret_cast<float4*>(&h_s[rl * F + k8 + 4]) = hi;
@@ -190,26 +173,37 @@ bilstm_recurrence_kernel(const float* __restrict__ xp,
         g_s[e_r * COLS + e_j] = xval + rec;
       }
       __syncthreads();
-      // Cell update for (row, unit) pairs of this chunk.
+      // Cell update for (row, unit) pairs of this chunk.  Explicit fmaf
+      // and separate activations keep the arithmetic identical in both
+      // modes.
       if (tid < nrows * UNITS) {
         const int rl = tid / UNITS;
         const int uu = tid % UNITS;
         const float* g = g_s + rl * COLS;
-        const float ig = g[uu];
-        const float fg = g[UNITS + uu];
-        const float gg = g[2 * UNITS + uu];
-        const float og = g[3 * UNITS + uu];
+        const float si = sigmoidf_(g[uu]);
+        const float sf = sigmoidf_(g[UNITS + uu] + 1.f);
+        const float tg = tanhf(g[2 * UNITS + uu]);
+        const float so = sigmoidf_(g[3 * UNITS + uu]);
         float* cp = c_s + (r0 + rl) * UNITS + uu;
-        const float c = sigmoidf_(fg + 1.f) * (*cp) + sigmoidf_(ig) * tanhf(gg);
-        const float h = sigmoidf_(og) * tanhf(c);
+        const float c = fmaf(sf, *cp, si * tg);
+        const float h = so * tanhf(c);
         *cp = c;
         const size_t row = static_cast<size_t>(d * Bp + r0 + rl);
-        out[(static_cast<size_t>(t) * R + row) * F + u0 + uu] = h;
+        const size_t trow = static_cast<size_t>(t) * R + row;
+        out[trow * F + u0 + uu] = h;
         hnext[row * F + u0 + uu] = __float2bfloat16_rn(h);
+        if constexpr (TRAIN) {
+          ResT* ar = a_out + trow * G + u0 + uu;
+          ar[0] = idt::from_float<ResT>(si);
+          ar[F] = idt::from_float<ResT>(sf);
+          ar[2 * F] = idt::from_float<ResT>(tg);
+          ar[3 * F] = idt::from_float<ResT>(so);
+          c_out[trow * F + u0 + uu] = idt::from_float<ResT>(c);
+        }
       }
       __syncthreads();
     }
-    grid_barrier(bar, static_cast<unsigned int>(t + 1) * gridDim.x);
+    idt::grid_barrier(bar, static_cast<unsigned int>(t + 1) * gridDim.x);
   }
 }
 
@@ -221,54 +215,44 @@ size_t smem_bytes(int Bp, int F) {
           static_cast<size_t>(RC) * COLS + static_cast<size_t>(Bp) * UNITS);
 }
 
-}  // namespace
-
-extern "C" int idt_bilstm_recurrence(const void* xp, const void* wh,
-                                     void* out, void* hbuf, void* bar, int T,
-                                     int Bp, int F, cudaStream_t stream) {
+template <bool TRAIN, typename ResT>
+int launch(const void* xp, const void* wh, void* out, void* a, void* c,
+           void* hbuf, void* bar, int T, int Bp, int F,
+           cudaStream_t stream) {
   // F a multiple of 128 keeps the chunk height (F/32 rows) a multiple of
   // the 4-row FMA group; F <= 512 keeps the block within MAX_THREADS.
   if (T <= 0 || Bp <= 0 || F <= 0 || F % 128 != 0 || F > MAX_THREADS ||
       reinterpret_cast<uintptr_t>(hbuf) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = F;
-  const int blocks = 2 * (F / UNITS);
-  const size_t smem = smem_bytes(Bp, F);
-
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int coop = 0, sms = 0, max_smem = 0;
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  if (smem > static_cast<size_t>(max_smem))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  err = cudaFuncSetAttribute(bilstm_recurrence_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, bilstm_recurrence_kernel, threads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // A spinning barrier over blocks that are not all resident hangs.
-  if (per_sm * sms < blocks)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-
-  err = cudaMemsetAsync(bar, 0, sizeof(unsigned int), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const float* xp_ = static_cast<const float*>(xp);
   const __nv_bfloat16* wh_ = static_cast<const __nv_bfloat16*>(wh);
   float* out_ = static_cast<float*>(out);
+  ResT* a_ = static_cast<ResT*>(a);
+  ResT* c_ = static_cast<ResT*>(c);
   __nv_bfloat16* hbuf_ = static_cast<__nv_bfloat16*>(hbuf);
   unsigned int* bar_ = static_cast<unsigned int*>(bar);
-  void* args[] = {&xp_, &wh_, &out_, &hbuf_, &bar_, &T, &Bp, &F};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(bilstm_recurrence_kernel), dim3(blocks),
-      dim3(threads), args, smem, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&xp_, &wh_, &out_, &a_, &c_, &hbuf_, &bar_, &T, &Bp, &F};
+  return static_cast<int>(idt::launch_persistent(
+      bilstm_recurrence_kernel<TRAIN, ResT>, 2 * (F / UNITS), F,
+      smem_bytes(Bp, F), args, bar_, stream));
+}
+
+}  // namespace
+
+extern "C" int idt_bilstm_recurrence(const void* xp, const void* wh,
+                                     void* out, void* hbuf, void* bar, int T,
+                                     int Bp, int F, cudaStream_t stream) {
+  return launch<false, float>(xp, wh, out, nullptr, nullptr, hbuf, bar, T,
+                              Bp, F, stream);
+}
+
+extern "C" int idt_bilstm_recurrence_train(const void* xp, const void* wh,
+                                           void* out, void* a, void* c,
+                                           void* hbuf, void* bar, int T,
+                                           int Bp, int F, int res_bf16,
+                                           cudaStream_t stream) {
+  if (res_bf16)
+    return launch<true, __nv_bfloat16>(xp, wh, out, a, c, hbuf, bar, T, Bp,
+                                       F, stream);
+  return launch<true, float>(xp, wh, out, a, c, hbuf, bar, T, Bp, F, stream);
 }

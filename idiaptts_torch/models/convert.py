@@ -1,7 +1,9 @@
-"""JAX -> PyTorch weight conversion for the rnn_dyn acoustic model.
+"""Weight conversion between the JAX package's rnn_dyn acoustic model and
+the port's, both ways.
 
 The JAX model's flax parameter tree, given as nested dicts of numpy
-arrays, becomes the port's state dict.  The port names its parameters
+arrays, becomes the port's state dict (:func:`flax_to_state_dict`), and
+back (:func:`state_dict_to_flax`).  The port names its parameters
 after the flax tree, so the conversion is a flattening with two
 adjustments:
 
@@ -54,3 +56,19 @@ def load_flax_params(model, variables):
     matched (``strict=True``).  Returns the model."""
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     return model
+
+
+def state_dict_to_flax(state_dict):
+    """The port's state dict -> the flax ``{"params": {...}}`` tree of
+    float32 numpy arrays (the inverse of :func:`flax_to_state_dict`),
+    for comparing the two packages' parameters after training."""
+    params = {}
+    for name, value in state_dict.items():
+        path = name.split(".")
+        if path[0] == "wrapped":
+            path = ["wrapped", "inner"] + path[1:]
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value.detach().to(torch.float32).cpu().numpy()
+    return {"params": params}

@@ -9,7 +9,7 @@ batch-first (B, T, D) tensors with a (B,) ``lengths`` vector.
 import torch
 from torch import nn
 
-from idiaptts_tpu.models.config import ModelConfig
+from idiaptts_torch.models.config import ModelConfig
 
 
 def select_lengths(lengths, *names):
@@ -75,7 +75,9 @@ def write_outputs(data_dict, output_names, output):
 
 class NamedForwardWrapper(nn.Module):
     """Wraps an inner module into the dict protocol.  The inner module
-    is called as ``wrapped(inputs, lengths=..., training=...)``."""
+    is called as ``wrapped(inputs, lengths=..., training=..., **kwargs)``
+    (``kwargs``: the model's own options, such as rnn_dyn's dropout
+    ``generator`` and ``residuals_bf16``)."""
 
     def __init__(self, wrapped, input_names, output_names,
                  input_merge_type=ModelConfig.MERGE_CAT,
@@ -88,10 +90,11 @@ class NamedForwardWrapper(nn.Module):
         self.teacher_forcing_input_names = tuple(
             teacher_forcing_input_names or ())
 
-    def forward(self, data_dict, lengths=None, training=False):
+    def forward(self, data_dict, lengths=None, training=False, **kwargs):
         inputs = merge_inputs(data_dict, self.input_names,
                               self.input_merge_type, training,
                               self.teacher_forcing_input_names)
         lengths = select_lengths(lengths, *self.input_names)
-        output = self.wrapped(inputs, lengths=lengths, training=training)
+        output = self.wrapped(inputs, lengths=lengths, training=training,
+                              **kwargs)
         return write_outputs(data_dict, self.output_names, output)

@@ -1,5 +1,5 @@
 """Config-built acoustic model stacks: the port of
-``idiaptts_tpu/models/rnn_dyn.py`` for the serving path.
+``idiaptts_tpu/models/rnn_dyn.py`` for serving and training.
 
 The whole legacy model-string grammar is ported (:func:`convert_legacy_string`,
 ``RNNDYN-2_RELU_1024-3_BiLSTM_512-1_FC_67``), but only ``Linear``/``FC``
@@ -14,7 +14,12 @@ Numerics follow the JAX model:
   tensors: the JAX package computes them outside any Pallas kernel.
 - Each BiLSTM layer runs through
   :func:`idiaptts_torch.ops.cuda_lstm.bilstm_layer_tmajor` (the
-  projection and recurrence kernels on CUDA).
+  projection and recurrence kernels on CUDA) for inference, and through
+  :class:`idiaptts_torch.ops.cuda_lstm.BiLSTMLayerFn` (projection,
+  training-mode recurrence, reverse-time backward kernel) when
+  ``forward(..., training=True)`` under autograd.
+- Dropout, where the config sets it (the Interspeech'18 default is 0.0),
+  draws its masks from the ``generator`` passed to ``forward``.
 - The model output is float32.
 
 Parameter names mirror the flax tree (``g0_Linear_0.kernel``,
@@ -28,9 +33,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from idiaptts_tpu.models.config import ModelConfig
+from idiaptts_torch.models.config import ModelConfig
 from idiaptts_torch.models.named import NamedForwardWrapper
-from idiaptts_torch.ops.cuda_lstm import bilstm_layer_tmajor
+from idiaptts_torch.ops.cuda_lstm import BiLSTMLayerFn, bilstm_layer_tmajor
 
 IDENTIFIER = "RNNDYN"
 
@@ -110,6 +115,18 @@ def masked_flip(x, lengths):
     return torch.gather(x, 1, idx)
 
 
+def _dropout(x, p, training, generator):
+    """Inverted dropout (``flax.linen.Dropout``) with masks drawn from
+    ``generator``; the identity outside training or at ``p == 0``."""
+    if not training or not p:
+        return x
+    if generator is None:
+        raise ValueError("dropout {} in training needs a torch.Generator "
+                         "(forward(..., generator=...))".format(p))
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 def _lecun_normal_(tensor, fan_in, generator):
     """flax's lecun_normal: truncated normal, variance 1/fan_in."""
     std = float(np.sqrt(1.0 / fan_in)) / 0.87962566103423978
@@ -157,15 +174,21 @@ class _BiFastLSTM(nn.Module):
                 nn.init.orthogonal_(self.Wh[d], generator=generator)
             self.b.zero_()
 
-    def forward(self, x, x_rev):
+    def forward(self, x, x_rev, training=False, residuals_bf16=False):
         """x, x_rev: (B, T, D).  Returns (out_f, out_b_rev), each
-        (B, T, F) float32."""
+        (B, T, F) float32.  With ``training`` and autograd on, the layer
+        saves its backward residuals (float32, or bf16 with
+        ``residuals_bf16``) and differentiates through the kernels."""
         B, T, D = x.shape
         F = self.features
         xin_t = torch.stack([x, x_rev]).to(torch.bfloat16)   # (2, B, T, D)
         xin_t = xin_t.permute(2, 0, 1, 3).reshape(T, 2 * B, D).contiguous()
         wh_cat = torch.cat([self.Wh[0], self.Wh[1]], dim=0)
-        hs = bilstm_layer_tmajor(xin_t, self.Wx, wh_cat, self.b)
+        if training and torch.is_grad_enabled():
+            hs = BiLSTMLayerFn.apply(xin_t, self.Wx, wh_cat, self.b,
+                                     residuals_bf16)
+        else:
+            hs = bilstm_layer_tmajor(xin_t, self.Wx, wh_cat, self.b)
         hs = hs.reshape(T, 2, B, F)
         return hs[:, 0].transpose(0, 1), hs[:, 1].transpose(0, 1)
 
@@ -175,27 +198,31 @@ class _MaskedFlipRNN(nn.Module):
     bidirectional-LSTM branch of the JAX ``_MaskedFlipRNN``)."""
 
     def __init__(self, cell_type, in_dim, out_dim, num_layers,
-                 bidirectional):
+                 bidirectional, dropout=0.0):
         super().__init__()
         if cell_type != "LSTM" or not bidirectional:
             raise NotImplementedError(
                 "{}{} layers {}".format("Bi" if bidirectional else "",
                                         cell_type, _LATER))
         self.num_layers = int(num_layers)
+        self.dropout = float(dropout or 0.0)
         for layer in range(self.num_layers):
             self.add_module("bi{}".format(layer),
                             _BiFastLSTM(in_dim, out_dim))
             in_dim = 2 * out_dim
 
-    def forward(self, x, lengths=None):
+    def forward(self, x, lengths=None, training=False, generator=None,
+                residuals_bf16=False):
         for layer in range(self.num_layers):
             bi = getattr(self, "bi{}".format(layer))
             x_rev = masked_flip(x, lengths) if lengths is not None \
                 else x.flip(1)
-            out_f, out_b_rev = bi(x, x_rev)
+            out_f, out_b_rev = bi(x, x_rev, training, residuals_bf16)
             out_b = masked_flip(out_b_rev, lengths) \
                 if lengths is not None else out_b_rev.flip(1)
             x = torch.cat([out_f, out_b], dim=-1)
+            if layer < self.num_layers - 1:
+                x = _dropout(x, self.dropout, training, generator)
         return x
 
 
@@ -220,11 +247,12 @@ class RNNDyn(nn.Module):
                     self.add_module(sub, _Dense(dim, layer.out_dim))
                     names.append(sub)
                     dim = layer.out_dim
-                self._plan.append(("dense", names, layer.nonlin))
+                self._plan.append(("dense", names,
+                                   (layer.nonlin, layer.dropout)))
             elif t == "LSTM":
                 self.add_module(name, _MaskedFlipRNN(
                     t, dim, layer.out_dim, layer.num_layers,
-                    layer.bidirectional))
+                    layer.bidirectional, layer.dropout))
                 self._plan.append(("rnn", name, None))
                 dim = 2 * layer.out_dim
             else:
@@ -237,20 +265,24 @@ class RNNDyn(nn.Module):
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
-    def forward(self, inputs, lengths=None, training=False):
-        if training:
-            raise NotImplementedError(
-                "training is not ported yet; ROADMAP.md queue 1 item 7 "
-                "(training slice)")
+    def forward(self, inputs, lengths=None, training=False, generator=None,
+                residuals_bf16=False):
+        """inputs (B, T, D) -> (B, T, out_dim) float32.  ``training``
+        turns on dropout (masks from ``generator``) and, under autograd,
+        the BiLSTM layers' training kernels with float32 residuals, or
+        bf16 ones with ``residuals_bf16``."""
         x = inputs
-        for kind, names, nonlin in self._plan:
+        for kind, names, extra in self._plan:
             if kind == "dense":
+                nonlin, p = extra
                 for sub in names:
                     x = getattr(self, sub)(x)
                     if nonlin:
                         x = _NONLINS[nonlin](x)
+                    x = _dropout(x, p, training, generator)
             else:
-                x = getattr(self, names)(x, lengths)
+                x = getattr(self, names)(x, lengths, training, generator,
+                                         residuals_bf16)
         return x.to(torch.float32)
 
     class Config(ModelConfig):

@@ -1,6 +1,7 @@
-"""BiLSTM layer kernels, inference half: the CUDA kernels
-``csrc/bilstm_proj.cu`` and ``csrc/bilstm_recurrence.cu`` and their plain
-PyTorch versions.
+"""BiLSTM layer kernels, inference and training: the CUDA kernels
+``csrc/bilstm_proj.cu``, ``csrc/bilstm_recurrence.cu`` and
+``csrc/bilstm_bwd.cu``, their plain PyTorch versions, and the autograd
+functions that train through them.
 
 Replaces, from ``idiaptts_tpu/ops/pallas_lstm.py``:
 
@@ -10,14 +11,24 @@ Replaces, from ``idiaptts_tpu/ops/pallas_lstm.py``:
   :func:`bilstm_recurrence_tmajor`; :func:`bilstm_layer_tmajor` runs both.
 - ``_bilstm_kernel`` (wrapper ``_recurrence_tmajor``): the recurrence over
   precomputed projections, :func:`bilstm_recurrence_tmajor`.
+- ``_bilstm_kernel_train`` (wrapper ``_recurrence_train_tmajor``): the
+  recurrence that also streams out the backward's residuals (gates and
+  cells), :func:`bilstm_recurrence_train_tmajor`; and
+  ``_bilstm_layer_kernel_train`` as the projection kernel followed by it.
+- ``_bilstm_bwd_kernel`` (wrapper ``_dz_bwd_tmajor``): the reverse-time
+  backward, :func:`dz_bwd_tmajor`.
+- the custom VJPs ``bilstm_layer_tmajor`` and ``bilstm_recurrence_tmajor``:
+  :class:`BiLSTMLayerFn` and :class:`BiLSTMRecurrenceFn`.  Their forward
+  saves h, the gates and the cells; their backward runs the backward
+  kernel, then the weight and input gradients as GEMMs with bf16
+  operands and float32 results (``_dwh_from_dz``, ``_layer_bwd``).  There
+  is no forward recompute and no scan-VJP fallback.
 
 The public layouts are the JAX package's time-major ones: rows are
 ``[fwd Bp | bwd Bp]`` with the backward direction pre-reversed by
 ``masked_flip``.  Numerics as ``pallas_lstm.py``: bf16 matmul operands
 with float32 accumulation, the input projection rounded to bf16 before
 the bias, forget-gate bias +1, gate order [i, f, g, o], float32 state.
-The training kernels (``_bilstm_kernel_train``, ``_bilstm_bwd_kernel``,
-``_bilstm_layer_kernel_train``) are not ported yet.
 """
 
 import ctypes
@@ -32,6 +43,12 @@ PROJECTION = dispatch.Kernel(
 RECURRENCE = dispatch.Kernel(
     "bilstm_recurrence", "idt_bilstm_recurrence",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
+RECURRENCE_TRAIN = dispatch.Kernel(
+    "bilstm_recurrence_train", "idt_bilstm_recurrence_train",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
+BACKWARD = dispatch.Kernel(
+    "bilstm_bwd", "idt_bilstm_bwd",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
 
 
 def _bf16_exact(x):
@@ -43,11 +60,7 @@ def _bf16_exact(x):
 
 # -- plain versions ------------------------------------------------------
 
-def recurrence_tmajor_plain(xp_t, wh_cat):
-    """Plain recurrence (the role of ``pallas_lstm._scan_tmajor``).
-
-    xp_t: (T, 2*Bp, 4F) float32; wh_cat: (2F, 4F) = vstack(W_f, W_b).
-    Returns (T, 2*Bp, F) float32 hidden states."""
+def _recurrence_plain(xp_t, wh_cat, residuals):
     T, R, G = xp_t.shape
     F = G // 4
     Bp = R // 2
@@ -57,13 +70,81 @@ def recurrence_tmajor_plain(xp_t, wh_cat):
     c = torch.zeros_like(h)
     out = torch.empty(T, 2, Bp, F, dtype=torch.float32,
                       device=xp_t.device)
+    if residuals:
+        gates_out = torch.empty(T, 2, Bp, G, dtype=torch.float32,
+                                device=xp_t.device)
+        cells = torch.empty_like(out)
     for t in range(T):
         gates = xp[t] + torch.bmm(_bf16_exact(h), wh)
         i, f, g, o = gates.split(F, dim=-1)
-        c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
+        si, sf = torch.sigmoid(i), torch.sigmoid(f + 1.0)
+        tg, so = torch.tanh(g), torch.sigmoid(o)
+        c = sf * c + si * tg
+        h = so * torch.tanh(c)
         out[t] = h
+        if residuals:
+            gates_out[t] = torch.cat([si, sf, tg, so], dim=-1)
+            cells[t] = c
+    if residuals:
+        return (out.reshape(T, R, F), gates_out.reshape(T, R, G),
+                cells.reshape(T, R, F))
     return out.reshape(T, R, F)
+
+
+def recurrence_tmajor_plain(xp_t, wh_cat):
+    """Plain recurrence (the role of ``pallas_lstm._scan_tmajor``).
+
+    xp_t: (T, 2*Bp, 4F) float32; wh_cat: (2F, 4F) = vstack(W_f, W_b).
+    Returns (T, 2*Bp, F) float32 hidden states."""
+    return _recurrence_plain(xp_t, wh_cat, residuals=False)
+
+
+def recurrence_train_tmajor_plain(xp_t, wh_cat, res_bf16=False):
+    """Plain training-mode recurrence (the role of
+    ``pallas_lstm._recurrence_train_tmajor``): returns ``(h, a, c)``, the
+    hidden states (T, 2*Bp, F) float32, the post-activation gates
+    ``[sigmoid(i), sigmoid(f + 1), tanh(g), sigmoid(o)]`` (T, 2*Bp, 4F)
+    and the cells (T, 2*Bp, F), the last two in bf16 when ``res_bf16``
+    (float32 otherwise).  h is that of :func:`recurrence_tmajor_plain`
+    bit for bit."""
+    h, a, c = _recurrence_plain(xp_t, wh_cat, residuals=True)
+    rdt = torch.bfloat16 if res_bf16 else torch.float32
+    return h, a.to(rdt), c.to(rdt)
+
+
+def dz_bwd_tmajor_plain(a, c, gout, wh_cat):
+    """Plain reverse-time LSTM backward (the role of
+    ``pallas_lstm._dz_bwd_tmajor``): pre-activation gate cotangents dz
+    (T, 2*Bp, 4F) float32 from the training-mode residuals ``a``
+    (T, 2*Bp, 4F) and ``c`` (T, 2*Bp, F), float32 or bf16, and the
+    upstream cotangent ``gout`` (T, 2*Bp, F), which is rounded to the
+    residuals' type first, as the JAX wrapper does.  The recurrent dh is
+    bf16(dz) . Wh_d^T with float32 accumulation."""
+    T, R, G = a.shape
+    F = G // 4
+    Bp = R // 2
+    a32 = a.to(torch.float32)
+    c32 = c.to(torch.float32)
+    g32 = gout.to(a.dtype).to(torch.float32)
+    wh_t = _bf16_exact(wh_cat).reshape(2, F, G).transpose(1, 2)
+    dh = torch.zeros(R, F, dtype=torch.float32, device=a.device)
+    dc = torch.zeros_like(dh)
+    dz = torch.empty(T, R, G, dtype=torch.float32, device=a.device)
+    for t in range(T - 1, -1, -1):
+        i, f, g, o = a32[t].split(F, dim=-1)
+        tc = torch.tanh(c32[t])
+        cprev = c32[t - 1] if t > 0 else torch.zeros_like(tc)
+        dh_tot = g32[t] + dh
+        dc = dc + dh_tot * o * (1.0 - tc * tc)
+        dzt = torch.cat([dc * g * (i * (1.0 - i)),
+                         dc * cprev * (f * (1.0 - f)),
+                         dc * i * (1.0 - g * g),
+                         dh_tot * tc * (o * (1.0 - o))], dim=-1)
+        dc = dc * f
+        dz[t] = dzt
+        dh = torch.bmm(_bf16_exact(dzt).reshape(2, Bp, G),
+                       wh_t).reshape(R, F)
+    return dz
 
 
 def bilstm_recurrence_scan(x_proj, wh):
@@ -100,6 +181,16 @@ def scan_layer_tmajor(xin_t, wx, wh_cat, b):
 
 # -- dispatching wrappers -------------------------------------------------
 
+def _gates_shape(x, name):
+    """(T, R, G, F) of a (T, 2*Bp, 4F) gate-width tensor; raises on
+    another shape."""
+    T, R, G = x.shape
+    F = G // 4
+    if R % 2 or G != 4 * F:
+        raise ValueError("{} must be (T, 2*Bp, 4F), got {}".format(
+            name, tuple(x.shape)))
+    return T, R, G, F
+
 def bilstm_projection_tmajor(xin_t, wx, b):
     """Input projection of one BiLSTM layer (the projection half of
     ``_bilstm_layer_kernel``).  Same contract as
@@ -131,11 +222,7 @@ def bilstm_recurrence_tmajor(xp_t, wh_cat):
     kernel, which needs F a multiple of 128 and at most 512."""
     if not dispatch.use_kernel(xp_t, wh_cat):
         return recurrence_tmajor_plain(xp_t, wh_cat)
-    T, R, G = xp_t.shape
-    F = G // 4
-    if R % 2 or G != 4 * F:
-        raise ValueError("xp_t must be (T, 2*Bp, 4F), got {}".format(
-            tuple(xp_t.shape)))
+    T, R, G, F = _gates_shape(xp_t, "xp_t")
     wh_cat = wh_cat.to(torch.bfloat16).contiguous()
     dispatch.check(xp_t, "xp_t", torch.float32, (T, R, G))
     dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (2 * F, G))
@@ -159,3 +246,148 @@ def bilstm_layer_tmajor(xin_t, wx, wh_cat, b):
         return scan_layer_tmajor(xin_t, wx, wh_cat, b)
     return bilstm_recurrence_tmajor(bilstm_projection_tmajor(xin_t, wx, b),
                                     wh_cat)
+
+
+def bilstm_recurrence_train_tmajor(xp_t, wh_cat, res_bf16=False):
+    """Training-mode recurrence (the role of
+    ``pallas_lstm._recurrence_train_tmajor``): ``(h, a, c)`` as
+    :func:`recurrence_train_tmajor_plain`.  CUDA tensors launch the
+    training instance of the persistent recurrence kernel, whose h is
+    bit-identical to :func:`bilstm_recurrence_tmajor`'s."""
+    if not dispatch.use_kernel(xp_t, wh_cat):
+        return recurrence_train_tmajor_plain(xp_t, wh_cat, res_bf16)
+    T, R, G, F = _gates_shape(xp_t, "xp_t")
+    wh_cat = wh_cat.to(torch.bfloat16).contiguous()
+    dispatch.check(xp_t, "xp_t", torch.float32, (T, R, G))
+    dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (2 * F, G))
+    rdt = torch.bfloat16 if res_bf16 else torch.float32
+    dev = xp_t.device
+    out = torch.empty(T, R, F, dtype=torch.float32, device=dev)
+    a = torch.empty(T, R, G, dtype=rdt, device=dev)
+    c = torch.empty(T, R, F, dtype=rdt, device=dev)
+    hbuf = torch.empty(2, R, F, dtype=torch.bfloat16, device=dev)
+    bar = torch.empty(1, dtype=torch.int32, device=dev)
+    RECURRENCE_TRAIN(dev, xp_t.data_ptr(), wh_cat.data_ptr(),
+                     out.data_ptr(), a.data_ptr(), c.data_ptr(),
+                     hbuf.data_ptr(), bar.data_ptr(), T, R // 2, F,
+                     int(bool(res_bf16)))
+    return out, a, c
+
+
+def dz_bwd_tmajor(a, c, gout, wh_cat):
+    """Reverse-time LSTM backward (the role of
+    ``pallas_lstm._dz_bwd_tmajor``): dz (T, 2*Bp, 4F) float32, as
+    :func:`dz_bwd_tmajor_plain`.  CUDA tensors launch the persistent
+    backward kernel; the residuals may be float32 or bf16, and ``gout``
+    is rounded to their type."""
+    if not dispatch.use_kernel(a, c, gout, wh_cat):
+        return dz_bwd_tmajor_plain(a, c, gout, wh_cat)
+    T, R, G, F = _gates_shape(a, "a")
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("a must be float32 or bf16, got {}".format(
+            a.dtype))
+    gout = gout.to(a.dtype).contiguous()
+    wh_cat = wh_cat.to(torch.bfloat16).contiguous()
+    dispatch.check(a, "a", a.dtype, (T, R, G))
+    dispatch.check(c, "c", a.dtype, (T, R, F))
+    dispatch.check(gout, "gout", a.dtype, (T, R, F))
+    dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (2 * F, G))
+    dev = a.device
+    dz = torch.empty(T, R, G, dtype=torch.float32, device=dev)
+    dzbuf = torch.empty(2, R, G, dtype=torch.bfloat16, device=dev)
+    bar = torch.empty(1, dtype=torch.int32, device=dev)
+    BACKWARD(dev, a.data_ptr(), c.data_ptr(), gout.data_ptr(),
+             wh_cat.data_ptr(), dz.data_ptr(), dzbuf.data_ptr(),
+             bar.data_ptr(), T, R // 2, F, int(a.dtype == torch.bfloat16))
+    return dz
+
+
+# -- gradients: GEMMs around the backward kernel ----------------------------
+
+def mm_f32(x, y):
+    """x @ y with bf16 operands and a float32 result: float32
+    accumulation of exact bf16 products, the rounding class of the JAX
+    package's ``preferred_element_type=f32`` einsums.  On the card one
+    bf16 cuBLAS GEMM with a float32 output (``out_dtype``); on the CPU,
+    which has no such kernel, a float32 GEMM of the bf16-rounded
+    operands."""
+    x16 = x.to(torch.bfloat16)
+    y16 = y.to(torch.bfloat16)
+    if x16.device.type == "cuda":
+        return torch.mm(x16, y16, out_dtype=torch.float32)
+    return torch.mm(x16.to(torch.float32), y16.to(torch.float32))
+
+
+def dwh_from_dz(h, dz, F):
+    """dWh_cat = sum_t h[t-1]^T dz[t] per direction (the role of
+    ``pallas_lstm._dwh_from_dz``): (2F, 4F) float32."""
+    T, R, G = dz.shape
+    Bp = R // 2
+    hprev = torch.cat([torch.zeros_like(h[:1]), h[:-1]], dim=0)
+    return torch.cat([
+        mm_f32(hprev[:, d * Bp:(d + 1) * Bp].reshape(T * Bp, F).t(),
+               dz[:, d * Bp:(d + 1) * Bp].reshape(T * Bp, G))
+        for d in range(2)], dim=0)
+
+
+def layer_grads(xin_t, wx, dz):
+    """dWx (2, D, 4F), db (2, 4F) and dxin (T, 2*Bp, D) of the projection
+    ``bf16(xin . Wx) + b`` from dz (the GEMMs of
+    ``pallas_lstm._layer_bwd``); dxin takes xin's dtype."""
+    T, R, D = xin_t.shape
+    G = dz.shape[-1]
+    Bp = R // 2
+    dwx, db, dx = [], [], []
+    for d in range(2):
+        x_d = xin_t[:, d * Bp:(d + 1) * Bp].reshape(T * Bp, D)
+        dz_d = dz[:, d * Bp:(d + 1) * Bp].reshape(T * Bp, G)
+        dwx.append(mm_f32(x_d.t(), dz_d))
+        db.append(dz_d.sum(dim=0))
+        dx.append(mm_f32(dz_d, wx[d].t()).reshape(T, Bp, D))
+    return (torch.stack(dwx), torch.stack(db),
+            torch.cat(dx, dim=1).to(xin_t.dtype))
+
+
+class BiLSTMRecurrenceFn(torch.autograd.Function):
+    """Differentiable recurrence over precomputed projections (the role
+    of the custom VJP ``pallas_lstm.bilstm_recurrence_tmajor``):
+    ``apply(xp_t, wh_cat, res_bf16)`` -> h (T, 2*Bp, F).  Forward runs
+    the training-mode recurrence; backward runs the backward kernel and
+    the dWh GEMMs on the saved states."""
+
+    @staticmethod
+    def forward(ctx, xp_t, wh_cat, res_bf16=False):
+        h, a, c = bilstm_recurrence_train_tmajor(xp_t, wh_cat, res_bf16)
+        ctx.save_for_backward(wh_cat, h, a, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        wh_cat, h, a, c = ctx.saved_tensors
+        dz = dz_bwd_tmajor(a, c, g.contiguous(), wh_cat)
+        dwh = dwh_from_dz(h, dz, wh_cat.shape[0] // 2)
+        return dz, dwh.to(wh_cat.dtype), None
+
+
+class BiLSTMLayerFn(torch.autograd.Function):
+    """Differentiable BiLSTM layer (the role of the custom VJP
+    ``pallas_lstm.bilstm_layer_tmajor``): ``apply(xin_t, wx, wh_cat, b,
+    res_bf16)`` -> h (T, 2*Bp, F).  Forward runs the projection kernel
+    then the training-mode recurrence (K7 = projection + K4) and saves h,
+    the gates and the cells; backward runs the backward kernel, then
+    dWh, dWx, db and dxin as GEMMs and a reduction."""
+
+    @staticmethod
+    def forward(ctx, xin_t, wx, wh_cat, b, res_bf16=False):
+        xp = bilstm_projection_tmajor(xin_t, wx, b)
+        h, a, c = bilstm_recurrence_train_tmajor(xp, wh_cat, res_bf16)
+        ctx.save_for_backward(xin_t, wx, wh_cat, h, a, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        xin_t, wx, wh_cat, h, a, c = ctx.saved_tensors
+        dz = dz_bwd_tmajor(a, c, g.contiguous(), wh_cat)
+        dwh = dwh_from_dz(h, dz, wh_cat.shape[0] // 2)
+        dwx, db, dxin = layer_grads(xin_t, wx, dz)
+        return dxin, dwx.to(wx.dtype), dwh.to(wh_cat.dtype), db, None

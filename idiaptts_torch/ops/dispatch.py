@@ -10,9 +10,10 @@ Routing is decided by where the tensors lie, and nothing else:
   is no shape gate that hands CUDA work to the plain path.
 
 The kernels live in ``idiaptts_torch/csrc/*.cu`` behind a plain C
-interface.  At first use they are compiled with ``nvcc`` into one shared
-library under ``idiaptts_torch/_build/`` (named by a hash of the sources
-and flags, so an edit rebuilds) and loaded with ``ctypes``.  Every
+interface.  At first use each source is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one
+shared library under ``idiaptts_torch/_build/`` (named by a hash of the
+sources and flags, so an edit rebuilds), loaded with ``ctypes``.  Every
 pointer and the stream are passed as ``c_void_p``; every C entry point
 returns ``cudaGetLastError()`` after its launch, and a non-zero code
 raises :class:`KernelError`.
@@ -37,9 +38,9 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "--ptxas-options=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "--ptxas-options=-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -66,6 +67,19 @@ def use_kernel(*tensors):
     raise ValueError("kernel inputs must all lie on the CPU or all on one "
                      "CUDA device, got {}".format(
                          sorted(str(t.device) for t in tensors)))
+
+
+def resolve_device(device):
+    """``torch.device`` for an entry point's ``device`` argument.  The
+    entry points default to ``"cuda"``; without a usable CUDA device
+    they raise rather than run on the CPU.  Pass ``device="cpu"`` for the
+    plain path."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device {} requested but CUDA is not available; pass "
+            "device='cpu' to run the plain PyTorch path".format(device))
+    return device
 
 
 def check(tensor, name, dtype, shape):
@@ -110,24 +124,48 @@ def _build_and_load():
             digest.hexdigest()[:16]))
     seconds, log = 0.0, ""
     if not os.path.isfile(lib_path):
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              check=False)
+        log = _compile_and_link(sources, lib_path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise KernelError("nvcc failed ({}):\n{}".format(
-                " ".join(cmd), log))
-        os.replace(tmp, lib_path)
     lib = ctypes.CDLL(lib_path)
     lib.idt_error_string.argtypes = [ctypes.c_int]
     lib.idt_error_string.restype = ctypes.c_char_p
     build_info.update(seconds=seconds, path=lib_path, log=log)
     return lib
+
+
+def _compile_and_link(sources, lib_path):
+    """One ``nvcc -c`` per source, all running at once, then one link.
+    Returns nvcc's output (ptxas reports); raises KernelError on a
+    failure."""
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sources:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append("{}:\n{}".format(" ".join(cmd), out))
+        if failed:
+            raise KernelError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib,
+               *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise KernelError("nvcc link failed ({}):\n{}".format(
+                " ".join(cmd), proc.stdout + proc.stderr))
+        os.replace(tmp_lib, lib_path)
+    return "".join(log)
 
 
 def library():

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from idiaptts_torch.ops.cuda_mlpg import solve_banded
+from idiaptts_torch.ops.dispatch import resolve_device
 
 _WINDOWS = (
     np.array([0.0, 1.0, 0.0]),        # static
@@ -81,13 +82,15 @@ def _cholesky_banded(a0, a1, a2):
     return l0, l1, l2
 
 
-def mlpg_factorise(variances, feature_dim, num_frames, device="cpu"):
+def mlpg_factorise(variances, feature_dim, num_frames, device="cuda"):
     """Banded Cholesky factors for ``num_frames`` frames.
 
     variances: (3*feature_dim,) diagonal variances [static | delta |
     delta-delta].  Returns ``(factors (3, T, D), tau (T, 3, D))`` as
-    float32 tensors on ``device``.  Computed on the CPU in float32 (the
+    float32 tensors on ``device`` (the card unless ``device="cpu"``;
+    raises without CUDA).  Computed on the CPU in float32 (the
     reference's precision), then moved."""
+    device = resolve_device(device)
     T, D = int(num_frames), int(feature_dim)
     var_row = torch.as_tensor(np.asarray(variances, np.float32)).reshape(
         3, D)

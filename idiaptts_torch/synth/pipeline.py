@@ -8,8 +8,8 @@ factored once per length bucket, and the WORLD vocoder (mcep and
 band-aperiodicity decode, harmonic plus shaped-noise synthesis).  The
 pipeline keeps the reference's ``bucket``/``fs``/``hop`` attributes and
 ``__call__(params, questions, lengths=None, f0_cont=None, seed=0, ...)``
-surface, so ``idiaptts_tpu.synth.server.SynthesisServer`` (JAX-free)
-serves it unchanged.
+surface, so :class:`idiaptts_torch.synth.server.SynthesisServer` serves
+it as the reference's server serves the JAX pipeline.
 
 The tunnel-transfer variants of the JAX pipeline (bit-packed and
 concatenated question uploads, bf16 transfer dtype, PRNG-key cache) and
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from idiaptts_torch.ops import mcep as mcep_ops
+from idiaptts_torch.ops.dispatch import resolve_device
 from idiaptts_torch.ops.mlpg import mlpg_factorise, mlpg_solve
 from idiaptts_torch.ops.world.d4c import decode_aperiodicity
 from idiaptts_torch.ops.world.synthesis import (_harmonic_part_mcep,
@@ -61,13 +62,14 @@ class FusedAcousticPipeline:
       num_coded_sps: mcep order + 1 (D).
       mean/scale: optional denormalisation of the model output (cmp
         order), both or neither.
-      device: where the stages run (``"cuda"`` on the card).
+      device: where the stages run: the card by default; without CUDA
+        the constructor raises unless ``device="cpu"`` is passed.
     """
 
     def __init__(self, model_apply, variances, num_coded_sps, fs=16000,
                  frame_shift_ms=5.0, num_bap=1, mean=None, scale=None,
                  max_harmonics=112, bucket=256, num_bins=513,
-                 post_filter=False, mgc_alpha=None, device="cpu"):
+                 post_filter=False, mgc_alpha=None, device="cuda"):
         self.model_apply = model_apply
         self.num_coded_sps = int(num_coded_sps)
         self.num_bap = int(num_bap)
@@ -77,7 +79,7 @@ class FusedAcousticPipeline:
         self.num_bins = int(num_bins)
         self.max_harmonics = int(max_harmonics)
         self.post_filter = bool(post_filter)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.alpha = mgc_alpha if mgc_alpha is not None \
             else mcep_ops.fs_to_mgc_alpha(fs)
         D, NB = self.num_coded_sps, self.num_bap

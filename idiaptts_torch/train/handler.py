@@ -1,0 +1,474 @@
+"""Model handler: the port's training and inference engine, the PyTorch
+counterpart of ``idiaptts_tpu/train/handler.py`` without its mesh and
+``shard_map`` parts.
+
+One train step is: forward in training mode (dropout masks from the
+handler's generator; every BiLSTM layer through its training kernels),
+the named losses (only ``backprop_loss_names`` enter the optimised
+total), backward, then the JAX handler's optax chain in its order:
+
+1. inf/NaN gradients to zero (``replace_inf_grads_by_zero``); the step's
+   gradient norm is taken here;
+2. gradients of ``frozen_layers`` (regexes over ``/``-joined parameter
+   names) to zero, so they count in no norm and move nothing;
+3. ``clip_by_global_norm``: g <- g / norm * max_norm when norm >=
+   max_norm (optax's formula, not ``clip_grad_norm_``'s);
+4. ``clip`` by value (``grad_clip_thresh``);
+5. Adam or SGD at the scheduler's learning rate for this step;
+6. the EMA of the parameters, when configured.
+
+Residual precision of the BiLSTM training kernels is an explicit flag,
+``residuals_bf16`` (float32 by default); nothing switches it by batch
+size.
+
+Checkpoints keep the JAX handler's directory layout
+(``<dir>/<model_name>/<networks_dir>/config.json``, ``params_<suffix>``,
+``optimiser_<suffix>``, ``scheduler_<suffix>`` with suffix ``e<N>``,
+``s<N>``, ``best`` or ``last``) in the port's own format: ``torch.save``
+of the state dicts, and the scheduler state as JSON.
+"""
+
+import glob
+import json
+import logging
+import math
+import os
+import re
+
+import numpy as np
+import torch
+
+from idiaptts_torch.models.config import ModelConfig
+from idiaptts_torch.ops.dispatch import resolve_device
+from idiaptts_torch.train.model_handler_base import ModelHandler
+from idiaptts_torch.train.schedulers import create_scheduler
+
+logger = logging.getLogger(__name__)
+
+
+def param_path(name):
+    """State-dict name -> the ``/``-joined path that ``frozen_layers``,
+    ``ignore_layers`` and ``layer_map`` patterns match."""
+    return name.replace(".", "/")
+
+
+class ExponentialMovingAverage:
+    """Shadow parameter EMA: shadow <- decay * shadow + (1 - decay) * p."""
+
+    def __init__(self, model, decay=0.9999):
+        self.decay = decay
+        self.shadow = {k: p.detach().clone()
+                       for k, p in model.named_parameters()}
+
+    @torch.no_grad()
+    def update(self, model):
+        for k, p in model.named_parameters():
+            self.shadow[k].mul_(self.decay).add_(p.detach(),
+                                                 alpha=1.0 - self.decay)
+
+
+class ModularModelHandler(ModelHandler):
+    """Backend engine for one model on one device (the card unless
+    ``device="cpu"``; raises without CUDA)."""
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = None
+        self.model_config = None
+        self.optimiser = None
+        self.scheduler = None
+        self.losses = []
+        self.ema = None
+        self.total_steps = 0
+        self.base_lr = None
+        self.frozen_layers = ()
+        self.grad_clip_max_norm = None
+        self.grad_clip_thresh = None
+        self.replace_inf_grads_by_zero = False
+        self.backprop_loss_names = None
+        self.iterations_per_scheduler_step = None
+        self.epochs_per_scheduler_step = None
+        self.residuals_bf16 = False
+        self.last_grad_norm = None
+        self.generator = torch.Generator(device=self.device).manual_seed(42)
+
+    # -- model creation ---------------------------------------------------
+    def create_model(self, model_config, hparams=None, dim_in=None,
+                     dim_out=None, example_batch=None, seed=1234):
+        """Build the model with weights from a generator seeded with
+        ``seed`` and move it to the handler's device.  (The port's modules
+        know their shapes from the config; ``example_batch`` is accepted
+        for the JAX handler's signature.)"""
+        self.model_config = model_config
+        self.model = model_config.create_model(
+            torch.Generator().manual_seed(seed)).to(self.device)
+        return self.model
+
+    def _batch_to_model_input(self, batch):
+        data = {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()
+                if not k.startswith("_") or k.startswith("_seq_mask")}
+        lengths = None
+        lengths_dict = batch.get("_lengths")
+        if lengths_dict:
+            arrays = {k: torch.as_tensor(np.asarray(v, np.int64),
+                                         device=self.device)
+                      for k, v in lengths_dict.items()}
+            # Multi-rate batches keep per-feature lengths; modules select
+            # their own via ``select_lengths``.
+            lengths = next(iter(arrays.values())) if len(arrays) == 1 \
+                else arrays
+        return data, lengths
+
+    # -- optimiser / scheduler / losses -----------------------------------
+    def set_optimiser(self, hparams):
+        name = hparams.get("optimiser_type", "Adam")
+        args = dict(hparams.get("optimiser_args", {}) or {})
+        lr = hparams.get("learning_rate")
+        if lr is None:
+            lr = args.pop("lr", 1e-3)
+        else:
+            args.pop("lr", None)
+        self.base_lr = lr
+        self.frozen_layers = tuple(hparams.get("frozen_layers") or ())
+        self.grad_clip_max_norm = None
+        if hparams.get("grad_clip_norm_type") is not None \
+                and hparams.get("grad_clip_max_norm") is not None:
+            self.grad_clip_max_norm = float(hparams.grad_clip_max_norm)
+        self.grad_clip_thresh = hparams.get("grad_clip_thresh")
+        params = list(self.model.parameters())
+        if name == "Adam":
+            # optax.adam's arguments and defaults.
+            betas = (args.pop("b1", 0.9), args.pop("b2", 0.999))
+            eps = args.pop("eps", 1e-8)
+            if args:
+                raise TypeError("Adam arguments not supported: {}".format(
+                    sorted(args)))
+            self.optimiser = torch.optim.Adam(params, lr=lr, betas=betas,
+                                              eps=eps)
+        elif name == "SGD":
+            momentum = args.pop("momentum", None) or 0.0
+            nesterov = args.pop("nesterov", False)
+            if args:
+                raise TypeError("SGD arguments not supported: {}".format(
+                    sorted(args)))
+            self.optimiser = torch.optim.SGD(params, lr=lr,
+                                             momentum=momentum,
+                                             nesterov=nesterov)
+        elif callable(name):
+            self.optimiser = name(params, lr)
+        else:
+            raise NotImplementedError("Unknown optimiser " + str(name))
+        self.replace_inf_grads_by_zero = hparams.get(
+            "replace_inf_grads_by_zero", False)
+
+    def set_scheduler(self, hparams):
+        self.scheduler = create_scheduler(
+            hparams.get("scheduler_type", "default"), self.base_lr,
+            hparams.get("scheduler_args", {}))
+        self.iterations_per_scheduler_step = hparams.get(
+            "iterations_per_scheduler_step")
+        self.epochs_per_scheduler_step = hparams.get(
+            "epochs_per_scheduler_step")
+
+    def _current_lr(self):
+        """LR for the upcoming train step.  With
+        ``iterations_per_scheduler_step=N`` the scheduler advances once
+        every N iterations, so step-indexed schedules are indexed by the
+        number of scheduler steps taken."""
+        if self.scheduler is None:
+            return self.base_lr
+        if self.iterations_per_scheduler_step:
+            t = (self.total_steps + 1) // self.iterations_per_scheduler_step
+            self.scheduler.on_epoch(t)
+            return self.scheduler.lr(t)
+        return self.scheduler.lr(self.total_steps + 1)
+
+    def set_losses(self, loss_configs):
+        self.losses = [c.create_loss() for c in loss_configs]
+
+    def set_ema(self, hparams):
+        decay = hparams.get("ema_decay")
+        if decay is None and hparams.get("exponential_moving_average"):
+            decay = hparams.get("exponential_moving_average_decay", 0.9999)
+        self.ema = ExponentialMovingAverage(self.model, decay) \
+            if decay else None
+
+    # -- steps ------------------------------------------------------------
+    def _losses_total(self, out, step):
+        total = 0.0
+        loss_values = {}
+        for loss in self.losses:
+            value = loss(out, step)
+            loss_values[loss.name] = value
+            # Losses outside backprop_loss_names are logged only.
+            if self.backprop_loss_names is None \
+                    or loss.name in self.backprop_loss_names:
+                total = total + value
+        return torch.as_tensor(total, dtype=torch.float32,
+                               device=self.device), loss_values
+
+    def _apply_model(self, data, lengths, training):
+        return self.model(data, lengths=lengths, training=training,
+                          generator=self.generator,
+                          residuals_bf16=self.residuals_bf16)
+
+    @staticmethod
+    def _global_norm(grads):
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.to(torch.float32)) for g in grads]))
+
+    def _train_step(self, data, lengths, lr):
+        """One optimiser step; returns (total, {name: loss}, grad norm)
+        as device scalars."""
+        for group in self.optimiser.param_groups:
+            group["lr"] = lr
+        self.optimiser.zero_grad(set_to_none=False)
+        out = self._apply_model(data, lengths, training=True)
+        total, loss_values = self._losses_total(out, self.total_steps)
+        total.backward()
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+        for _, p in named:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for _, p in named]
+        with torch.no_grad():
+            if self.replace_inf_grads_by_zero:
+                for g in grads:
+                    g.copy_(torch.where(torch.isfinite(g), g,
+                                        torch.zeros_like(g)))
+            grad_norm = self._global_norm(grads)
+            for n, p in named:
+                if any(re.search(pat, param_path(n))
+                       for pat in self.frozen_layers):
+                    p.grad.zero_()
+            if self.grad_clip_max_norm is not None:
+                norm = self._global_norm(grads)
+                max_norm = self.grad_clip_max_norm
+                for g in grads:
+                    g.copy_(torch.where(norm < max_norm, g,
+                                        g / norm * max_norm))
+            if self.grad_clip_thresh is not None:
+                for g in grads:
+                    g.clamp_(-self.grad_clip_thresh, self.grad_clip_thresh)
+        self.optimiser.step()
+        if self.ema is not None:
+            self.ema.update(self.model)
+        return total.detach(), loss_values, grad_norm
+
+    def process_batches(self, batches, training=True, step_offset=None,
+                        current_epoch=None):
+        """One pass over collated batches; returns the mean total loss and
+        the per-loss means.  Training updates the parameters per batch."""
+        self.model.train(training)
+        totals, counts = {}, 0
+        total_sum = 0.0
+        for batch in batches:
+            data, lengths = self._batch_to_model_input(batch)
+            if training:
+                lr = self._current_lr()
+                total, loss_values, grad_norm = self._train_step(
+                    data, lengths, lr)
+                self.total_steps += 1
+            else:
+                with torch.no_grad():
+                    out = self._apply_model(data, lengths, training=False)
+                    total, loss_values = self._losses_total(
+                        out, self.total_steps)
+                grad_norm = torch.zeros((), device=self.device)
+            # One device-to-host transfer per batch.
+            names = list(loss_values)
+            host = torch.stack(
+                [total.to(torch.float32), grad_norm.to(torch.float32)]
+                + [torch.as_tensor(loss_values[n], dtype=torch.float32,
+                                   device=self.device).detach()
+                   for n in names]).tolist()
+            total = host[0]
+            if training:
+                self.last_grad_norm = host[1]
+            if math.isnan(total):
+                if training:
+                    raise ValueError("Loss is NaN.")
+                logger.warning("NaN loss in evaluation.")
+            total_sum += total
+            for name, value in zip(names, host[2:]):
+                totals[name] = totals.get(name, 0.0) + value
+            counts += 1
+        if counts == 0:
+            return np.nan, {}
+        return total_sum / counts, {k: v / counts for k, v in totals.items()}
+
+    @torch.no_grad()
+    def inference(self, batch):
+        """Forward without training (the EMA parameters when configured);
+        returns the output dict as numpy arrays."""
+        data, lengths = self._batch_to_model_input(batch)
+        self.model.eval()
+        if self.ema is not None:
+            out = torch.func.functional_call(
+                self.model, self.ema.shadow, (data,),
+                {"lengths": lengths, "training": False})
+        else:
+            out = self._apply_model(data, lengths, training=False)
+        return {k: v.detach().to(torch.float32).cpu().numpy()
+                for k, v in out.items() if torch.is_tensor(v)}
+
+    # -- checkpointing ----------------------------------------------------
+    @staticmethod
+    def _atomic(path, write):
+        tmp = path + ".tmp"
+        write(tmp)
+        os.replace(tmp, path)
+
+    def save_checkpoint(self, directory, model_name=None, epoch=None,
+                        step=None, best=False, last=False, best_loss=None,
+                        networks_dir="nn"):
+        """Write config.json + params_/optimiser_/scheduler_<suffix>."""
+        out_dir = os.path.join(directory, model_name or "", networks_dir)
+        os.makedirs(out_dir, exist_ok=True)
+        if self.model_config is not None:
+            self._atomic(os.path.join(out_dir, "config.json"),
+                         lambda p: _write_text(p, self.model_config.to_json()))
+        suffixes = []
+        if epoch is not None:
+            suffixes.append("e{}".format(epoch))
+        if step is not None:
+            suffixes.append("s{}".format(step))
+        if best:
+            suffixes.append("best")
+        if last:
+            suffixes.append("last")
+        params = {k: v.detach().cpu()
+                  for k, v in self.model.state_dict().items()}
+        state = {"params": params}
+        if self.ema is not None:
+            # The EMA parameters serve inference; the raw ones resume
+            # training with the optimiser moments that belong to them.
+            state = {"params": {k: v.detach().cpu()
+                                for k, v in self.ema.shadow.items()},
+                     "raw_params": params}
+        opt_state = None
+        if self.optimiser is not None:
+            opt_state = {"opt_state": self.optimiser.state_dict(),
+                         "best_loss": None if best_loss is None
+                         else float(best_loss),
+                         "total_steps": int(self.total_steps)}
+        for suffix in suffixes:
+            self._atomic(os.path.join(out_dir, "params_" + suffix),
+                         lambda p: torch.save(state, p))
+            if opt_state is not None:
+                self._atomic(os.path.join(out_dir, "optimiser_" + suffix),
+                             lambda p: torch.save(opt_state, p))
+            if self.scheduler is not None:
+                blob = json.dumps(_jsonable(self.scheduler.state_dict()))
+                self._atomic(os.path.join(out_dir, "scheduler_" + suffix),
+                             lambda p: _write_text(p, blob))
+        return out_dir
+
+    def load_checkpoint(self, directory, model_name=None, epoch=None,
+                        step=None, best=False, last=False,
+                        load_optimiser=True, load_scheduler=True,
+                        ignore_layers=(), layer_map=(), networks_dir="nn"):
+        """Load params (+ optimiser and scheduler); returns (best_loss,
+        epoch, total_steps)."""
+        out_dir = os.path.join(directory, model_name or "", networks_dir)
+        if epoch is not None:
+            suffix = "e{}".format(epoch)
+        elif step is not None:
+            suffix = "s{}".format(step)
+        elif best:
+            suffix = "best"
+        elif last:
+            suffix = "last"
+        else:
+            suffix = self._newest_suffix(out_dir)
+        path = os.path.join(out_dir, "params_" + suffix)
+        if self.model is None:
+            with open(os.path.join(out_dir, "config.json")) as f:
+                self.model_config = ModelConfig.from_json(f.read())
+            self.model = self.model_config.create_model().to(self.device)
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        new_params = state["params"]
+        raw_params = state.get("raw_params")
+        if raw_params is not None and load_optimiser:
+            if self.ema is not None:
+                self.ema.shadow = {k: v.to(self.device)
+                                   for k, v in new_params.items()}
+            new_params = raw_params
+        if layer_map:
+            new_params = _apply_layer_map(new_params, layer_map)
+        if ignore_layers:
+            new_params = _merge_ignored(new_params, self.model.state_dict(),
+                                        ignore_layers)
+        self.model.load_state_dict(new_params, strict=True)
+        best_loss, total_epoch = None, None
+        opt_path = os.path.join(out_dir, "optimiser_" + suffix)
+        if os.path.isfile(opt_path):
+            # best_loss/total_steps live beside the optimiser state; read
+            # them even when the optimiser state is not wanted.
+            blob = torch.load(opt_path, map_location="cpu",
+                              weights_only=True)
+            best_loss = blob.get("best_loss")
+            self.total_steps = int(blob.get("total_steps", 0) or 0)
+            if load_optimiser and self.optimiser is not None:
+                try:
+                    self.optimiser.load_state_dict(blob["opt_state"])
+                except (KeyError, ValueError) as e:
+                    logger.warning("Optimiser state mismatch, kept the "
+                                   "fresh state: %s", e)
+        sched_path = os.path.join(out_dir, "scheduler_" + suffix)
+        if load_scheduler and os.path.isfile(sched_path) \
+                and self.scheduler is not None:
+            with open(sched_path) as f:
+                self.scheduler.load_state_dict(json.load(f))
+        match = re.match(r"e(\d+)", suffix)
+        if match:
+            total_epoch = int(match.group(1))
+        return best_loss, total_epoch, self.total_steps
+
+    @staticmethod
+    def _newest_suffix(out_dir):
+        candidates = [p for p in glob.glob(os.path.join(out_dir, "params_*"))
+                      if not p.endswith(".tmp")]
+        if not candidates:
+            raise FileNotFoundError("No checkpoint in " + out_dir)
+        newest = max(candidates, key=os.path.getctime)
+        return os.path.basename(newest)[len("params_"):]
+
+
+def _write_text(path, text):
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def _apply_layer_map(params, layer_map):
+    """Regex rename of ``/``-joined parameter paths."""
+    renamed = {}
+    for name, value in params.items():
+        path = param_path(name)
+        for pattern, replacement in layer_map:
+            path = re.sub(pattern, replacement, path)
+        renamed[path.replace("/", ".")] = value
+    return renamed
+
+
+def _merge_ignored(new_params, current_params, ignore_layers):
+    """Keep the current values of parameters that match an ignore
+    pattern or are missing from the checkpoint."""
+    merged = {}
+    for name, value in current_params.items():
+        ignored = any(re.search(p, param_path(name)) for p in ignore_layers)
+        merged[name] = value if ignored or name not in new_params \
+            else new_params[name]
+    return merged
+
+
+def _jsonable(d):
+    out = {}
+    for key, value in d.items():
+        if isinstance(value, (np.floating, np.integer)):
+            value = value.item()
+        if isinstance(value, (int, float, str, bool, type(None), list)):
+            out[key] = value
+    return out

@@ -102,3 +102,73 @@ def test_kernels_refuse_wrong_dtype(dev):
             torch.zeros(4, 2, 8, device=dev), torch.zeros(2, 8, 16,
                                                           device=dev),
             torch.zeros(2, 16, device=dev))
+
+
+@pytest.mark.parametrize("T,B,F,res_bf16", [(37, 3, 128, False),
+                                            (19, 8, 256, True),
+                                            (64, 32, 512, False),
+                                            (48, 8, 512, True)])
+def test_train_recurrence_kernel(dev, T, B, F, res_bf16):
+    """The training instance returns the inference kernel's h bit for bit,
+    and gates and cells within the recurrence tolerance of the plain
+    version (bf16 residuals: plus one bf16 ulp of a value in (-1, 1))."""
+    g = _gen(dev, 3)
+    xp = 0.5 * torch.randn(T, 2 * B, 4 * F, generator=g, device=dev)
+    wh = (torch.randn(2 * F, 4 * F, generator=g, device=dev)
+          / F ** 0.5).to(torch.bfloat16)
+    before = cuda_lstm.RECURRENCE_TRAIN.launches
+    h, a, c = cuda_lstm.bilstm_recurrence_train_tmajor(xp, wh, res_bf16)
+    assert cuda_lstm.RECURRENCE_TRAIN.launches == before + 1
+    assert torch.equal(h, cuda_lstm.bilstm_recurrence_tmajor(xp, wh))
+    h_p, a_p, c_p = cuda_lstm.recurrence_train_tmajor_plain(xp, wh,
+                                                            res_bf16)
+    tol = REC_TOL + (2 ** -8 if res_bf16 else 0.0)
+    torch.testing.assert_close(h, h_p, rtol=0, atol=REC_TOL)
+    torch.testing.assert_close(a.float(), a_p.float(), rtol=0, atol=tol)
+    # Cells are not bounded by 1: one bf16 ulp relative.
+    torch.testing.assert_close(c.float(), c_p.float(),
+                               rtol=2 ** -8 if res_bf16 else 0, atol=tol)
+
+
+@pytest.mark.parametrize("T,B,F,res_bf16", [(37, 3, 128, False),
+                                            (19, 8, 256, True),
+                                            (64, 32, 512, False),
+                                            (48, 8, 512, True)])
+def test_backward_kernel_matches_plain(dev, T, B, F, res_bf16):
+    """dz of the reverse-time kernel against the plain backward on the
+    same residuals: float32 sums in another order; a dz at a bf16
+    rounding boundary feeds the next step one bf16 ulp apart."""
+    g = _gen(dev, 4)
+    xp = 0.5 * torch.randn(T, 2 * B, 4 * F, generator=g, device=dev)
+    wh = (torch.randn(2 * F, 4 * F, generator=g, device=dev)
+          / F ** 0.5).to(torch.bfloat16)
+    _, a, c = cuda_lstm.recurrence_train_tmajor_plain(xp, wh, res_bf16)
+    gout = 0.1 * torch.randn(T, 2 * B, F, generator=g, device=dev)
+    before = cuda_lstm.BACKWARD.launches
+    dz = cuda_lstm.dz_bwd_tmajor(a, c, gout, wh)
+    assert cuda_lstm.BACKWARD.launches == before + 1
+    ref = cuda_lstm.dz_bwd_tmajor_plain(a, c, gout, wh)
+    torch.testing.assert_close(dz, ref, rtol=0,
+                               atol=1e-3 * max(1.0, ref.abs().max().item()))
+
+
+def test_layer_autograd_on_the_card_matches_plain_autograd(dev):
+    """BiLSTMLayerFn (projection kernel, training recurrence, backward
+    kernel, bf16 GEMMs) against autograd through the plain layer; bound
+    relative to each gradient's largest entry, as the CPU test."""
+    T, B, D, F = 24, 4, 256, 256
+    g = _gen(dev, 5)
+    args = [torch.randn(T, 2 * B, D, generator=g, device=dev).to(
+                torch.bfloat16),
+            torch.randn(2, D, 4 * F, generator=g, device=dev) / D ** 0.5,
+            torch.randn(2 * F, 4 * F, generator=g, device=dev) / F ** 0.5,
+            0.1 * torch.randn(2, 4 * F, generator=g, device=dev)]
+    wgt = torch.randn(T, 2 * B, F, generator=g, device=dev)
+    ours = [t.clone().requires_grad_() for t in args]
+    plain = [t.clone().requires_grad_() for t in args]
+    (cuda_lstm.BiLSTMLayerFn.apply(*ours, False) * wgt).sum().backward()
+    (cuda_lstm.scan_layer_tmajor(*plain) * wgt).sum().backward()
+    for o, p in zip(ours, plain):
+        scale = p.grad.float().abs().max().item()
+        assert (o.grad.float() - p.grad.float()).abs().max().item() \
+            <= 2e-2 * scale

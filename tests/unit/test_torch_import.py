@@ -1,9 +1,12 @@
-"""The port imports without JAX and without Triton.
+"""The port imports without JAX, without the JAX package and without
+Triton.
 
 Runs in a subprocess: this pytest process has imported jax already
-(tests/conftest.py), so the check blocks ``jax``, ``jaxlib`` and
-``flax`` in ``sys.meta_path`` of a fresh interpreter, imports every
-module of the port, and asserts that none of them pulled in Triton.
+(tests/conftest.py), so the check blocks ``jax``, ``jaxlib``, ``flax``,
+``optax`` and ``idiaptts_tpu`` in ``sys.meta_path`` of a fresh
+interpreter, imports every module of the port (and ``chip_smoke.py``),
+and asserts that none of them pulled in Triton.  A second check lists
+the port's modules from disk, so a new module cannot be left out.
 """
 
 import os
@@ -15,6 +18,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 MODULES = [
     "idiaptts_torch",
+    "idiaptts_torch.hparams",
     "idiaptts_torch.ops.dispatch",
     "idiaptts_torch.ops.cuda_mlpg",
     "idiaptts_torch.ops.mlpg",
@@ -22,18 +26,30 @@ MODULES = [
     "idiaptts_torch.ops.mcep",
     "idiaptts_torch.ops.world.d4c",
     "idiaptts_torch.ops.world.synthesis",
+    "idiaptts_torch.models.config",
+    "idiaptts_torch.models.losses",
     "idiaptts_torch.models.named",
     "idiaptts_torch.models.rnn_dyn",
     "idiaptts_torch.models.convert",
     "idiaptts_torch.synth.pipeline",
     "idiaptts_torch.synth.server",
+    "idiaptts_torch.data.normalisation",
+    "idiaptts_torch.data.reader",
+    "idiaptts_torch.data.dataset",
+    "idiaptts_torch.data.questions",
+    "idiaptts_torch.data.world_feat",
+    "idiaptts_torch.train.schedulers",
+    "idiaptts_torch.train.model_handler_base",
+    "idiaptts_torch.train.handler",
+    "idiaptts_torch.train.trainer",
+    "idiaptts_torch.train.acoustic",
     "chip_smoke",
 ]
 
 _SCRIPT = r"""
 import importlib, importlib.abc, sys
 
-BLOCKED = ("jax", "jaxlib", "flax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "idiaptts_tpu")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -65,6 +81,18 @@ def test_port_imports_without_jax_or_triton():
     proc = _run("-c", _SCRIPT, *MODULES)
     assert proc.returncode == 0, proc.stderr
     assert "imported {} modules".format(len(MODULES)) in proc.stdout
+
+
+def test_every_port_module_is_checked():
+    """Every module file of the port (package ``__init__`` files aside)
+    is in MODULES."""
+    on_disk = set()
+    for root, _, files in os.walk(os.path.join(REPO, "idiaptts_torch")):
+        for name in files:
+            if name.endswith(".py") and name != "__init__.py":
+                rel = os.path.relpath(os.path.join(root, name), REPO)
+                on_disk.add(rel[:-3].replace(os.sep, "."))
+    assert not sorted(on_disk - set(MODULES))
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

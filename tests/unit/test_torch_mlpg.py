@@ -32,7 +32,8 @@ def _jax_factors(T):
 @pytest.mark.parametrize("T", [1, 2, 5, 13, 64])
 def test_mlpg_factorise_matches_jax(T):
     factors_j, tau_j = _jax_factors(T)
-    factors_t, tau_t = torch_mlpg.mlpg_factorise(_variances(), D, T)
+    factors_t, tau_t = torch_mlpg.mlpg_factorise(_variances(), D, T,
+                                                   device="cpu")
     assert factors_t.shape == (3, T, D) and tau_t.shape == (T, 3, D)
     # Same float32 operations in the same order (sqrt, divide); the
     # banded precision sums differ only in association: a few ulps.
@@ -66,7 +67,8 @@ def test_solve_banded_plain_matches_jax(T):
 @pytest.mark.parametrize("T", [5, 13, 64])
 def test_mlpg_solve_batched_matches_jax(T):
     factors_j, tau_j = _jax_factors(T)
-    factors_t, tau_t = torch_mlpg.mlpg_factorise(_variances(), D, T)
+    factors_t, tau_t = torch_mlpg.mlpg_factorise(_variances(), D, T,
+                                                   device="cpu")
     feats = np.random.RandomState(7).randn(3, T, 3 * D).astype(np.float32)
     out_j = np.asarray(jax_mlpg.mlpg_solve(jnp.asarray(feats), factors_j,
                                            tau_j, D))
@@ -86,7 +88,7 @@ def test_mlpg_solve_matches_dense_numpy_reference():
     var = _variances()
     feats = np.random.RandomState(3).randn(T, 3 * D).astype(np.float32)
     ref = jax_mlpg.mlpg_numpy(feats, np.diag(var), D)
-    factors, tau = torch_mlpg.mlpg_factorise(var, D, T)
+    factors, tau = torch_mlpg.mlpg_factorise(var, D, T, device="cpu")
     out = torch_mlpg.mlpg_solve(torch.from_numpy(feats), factors, tau,
                                 D).numpy()
     # float32 vs float64 on a well-conditioned pentadiagonal system.
@@ -96,7 +98,8 @@ def test_mlpg_solve_matches_dense_numpy_reference():
 
 def test_cpu_tensors_take_the_plain_path():
     T, L = 9, 5
-    factors, _ = torch_mlpg.mlpg_factorise(_variances(), D, T)
+    factors, _ = torch_mlpg.mlpg_factorise(_variances(), D, T,
+                                                   device="cpu")
     l0, l1, l2 = (factors[i, :, :L].contiguous() for i in range(3))
     b = torch.randn(T, L, generator=torch.Generator().manual_seed(0))
     before = cuda_mlpg.SOLVE.launches

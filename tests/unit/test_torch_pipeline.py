@@ -87,7 +87,8 @@ def slice_setup():
                          mean=mean, scale=scale, bucket=BUCKET)
     pipe_t = FusedAcousticPipeline(apply_t, variances,
                                    num_coded_sps=NUM_SPS, fs=FS, mean=mean,
-                                   scale=scale, bucket=BUCKET)
+                                   scale=scale, bucket=BUCKET,
+                                   device="cpu")
     setup = dict(questions=questions, batch=batch, lengths=lengths, T=T,
                  params=params, model_t=model_t, pipe_j=pipe_j,
                  pipe_t=pipe_t, variances=variances, apply_t=apply_t)
@@ -202,13 +203,14 @@ def test_each_package_end_to_end(slice_setup):
 
 
 def test_server_serves_the_port(slice_setup):
-    """(c) The reference's JAX-free SynthesisServer over the port's
-    pipeline answers six concurrent requests."""
+    """(c) The port's own SynthesisServer (a copy of the reference's, not
+    a re-export) over the port's pipeline answers six concurrent
+    requests."""
     from idiaptts_torch.synth import server as torch_server
-    assert torch_server.SynthesisServer is SynthesisServer
+    assert torch_server.SynthesisServer is not SynthesisServer
     s = slice_setup
-    server = SynthesisServer(s["pipe_t"], s["model_t"], max_batch=8,
-                             max_wait_ms=100.0)
+    server = torch_server.SynthesisServer(s["pipe_t"], s["model_t"],
+                                          max_batch=8, max_wait_ms=100.0)
     results = [None] * len(s["questions"])
 
     def client(i):
@@ -239,7 +241,7 @@ def test_run_pcm_encodes_int16(slice_setup):
     s = slice_setup
     pipe = FusedAcousticPipeline(s["apply_t"], s["variances"],
                                  num_coded_sps=NUM_SPS, fs=FS,
-                                 bucket=BUCKET)
+                                 bucket=BUCKET, device="cpu")
     questions = s["questions"][:2]
     rows = pipe(s["model_t"], questions, device_output=True).numpy()
     pcm = pipe(s["model_t"], questions, pcm16=True)
