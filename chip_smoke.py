@@ -42,6 +42,22 @@ other error raises at once):
    port's CPU path on one utterance.  Then the handler's train step is
    timed at B = 8 and 32, T = 1024, on seeded random data (CUDA events;
    frames/s, TFLOP/s, and device time per kernel from torch.profiler).
+7. The WaveNet sampler kernel against its plain version at the
+   production widths (``WaveNetWrapper.Config`` defaults: 20 layers in 2
+   stacks, 64 residual/skip channels, 256 classes; random weights from a
+   seeded ``torch.Generator``) with 23 conditioning channels, over
+   T = 2048 samples at B = 1 and 16: forced-mode logits, greedy samples
+   against the argmax of the kernel's own forced logits, and a free run
+   with the plain version's uniforms.  CUDA-event times of the kernel for
+   1 s of audio (T = 16000) at B = 1, 16, 64 and 256; the plain version is
+   timed at T = 2048 only.
+8. The WaveNet vocoding path at full width: a port checkpoint in a
+   temporary directory, then ``Synthesiser.run_r9y9wavenet_mulaw_world_
+   feats_synth`` on ``cuda`` for the six fixture utterances' WORLD
+   features (20 mcep + lf0 + vuv + bap, x80 to 16 kHz) in one padded
+   batch, launch counters reset just before and read just after; six wav
+   files of the right length, finite and not constant.  One utterance's
+   first 800 samples in forced mode against the port's CPU path.
 
 The last three lines of standard output are the kernels JSON (every
 kernel with its bound, its plain version's and the library call's time),
@@ -94,10 +110,35 @@ KERNEL_SOURCES = {
                                 "idiaptts_tpu/ops/pallas_lstm.py:161"),
     "bilstm_bwd": ("idiaptts_torch/csrc/bilstm_bwd.cu",
                    "idiaptts_tpu/ops/pallas_lstm.py:264"),
+    "wavenet_sampler": ("idiaptts_torch/csrc/wavenet_sampler.cu",
+                        "idiaptts_tpu/ops/pallas_wavenet.py:54"),
 }
 SERVE_KERNELS = ("banded_solve", "bilstm_proj", "bilstm_recurrence")
 TRAIN_KERNELS = ("bilstm_proj", "bilstm_recurrence_train", "bilstm_bwd",
                  "bilstm_recurrence")
+VOCODE_KERNELS = ("wavenet_sampler",)
+
+# WaveNet vocoder at the production widths (WaveNetWrapper.Config
+# defaults), conditioned on the fixture WORLD features (20 mcep + lf0 +
+# vuv + bap = 23 channels) upsampled from 5 ms frames to 16 kHz.
+WN_LAYERS = 20
+WN_COND = 23
+WN_HOP = FS // 200
+WN_T_CHECK = 2048
+WN_CHECK_BATCHES = (1, 16)
+WN_T_TIME = FS                   # one second of audio
+WN_TIME_BATCHES = (1, 16, 64, 256)
+WN_T_CPU = 800
+# Sampler kernel vs its plain version, relative to the logits' largest
+# magnitude: bf16 operands and float32 sums in both, summed in other
+# orders, so z (rounded to bf16) can land one bf16 ulp apart and move
+# the later layers and logits; 4 bf16 ulps (2**-6).
+WN_TOL = 2.0 ** -6
+# The sampler (float32 sums) vs the teacher-forced parallel net, which
+# rounds every layer's outputs and the running skip sum to bf16: one bf16
+# rounding (2**-9 relative) per layer, relative to the logits' largest
+# magnitude.
+WN_NET_TOL = WN_LAYERS * 2.0 ** -9
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # the least time the card could take for a kernel's work is the larger of
@@ -876,6 +917,249 @@ def time_train_step(torch, device, card, batches=TRAIN_BATCHES, T=TRAIN_T,
     return out
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+def wavenet_model(torch, layers=WN_LAYERS, cond_channels=WN_COND, seed=0):
+    """The WaveNet at the production widths (``WaveNetWrapper.Config``
+    defaults) with random weights from a seeded generator, on the CPU."""
+    from idiaptts_torch.models.wavenet import WaveNetWrapper
+    cfg = WaveNetWrapper.Config(input_names=("cond",),
+                                output_names=("logits",),
+                                num_layers=layers, num_stacks=2,
+                                cond_channels=cond_channels)
+    return cfg.create_model(torch.Generator().manual_seed(seed)).eval()
+
+
+def timed_once(torch, fn):
+    """(fn(), CUDA-event milliseconds of that one call)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def wavenet_bound(w, T, B):
+    """Bound of T sampling steps for B rows: the bf16 products (gate,
+    skip/res and post1), post2's float32 products, and the weights read
+    once with the conditioning, the uniforms and the samples."""
+    R, Ca, S, C = w.R, w.Ca, w.S, w.C
+    G = 2 * Ca
+    L = len(w.dilations)
+    bf16_ops = 2.0 * T * B * (L * (2 * R * G + C * G + Ca * (S + R))
+                              + S * S)
+    f32_ops = 2.0 * T * B * S * 256
+    weight_bytes = sum(t.numel() * t.element_size() for t in (
+        w.embed, w.w1, w.b1, w.w2, w.b2, w.p1, w.p1b, w.p2, w.p2b))
+    nbytes = weight_bytes + T * B * C * 4 + 2 * T * B * 4
+    ops_ms = max(bf16_ops / PEAK_BF16_FLOPS, f32_ops / PEAK_F32_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def wavenet_kernel_checks(torch, device, layers=WN_LAYERS, T=WN_T_CHECK,
+                          batches=WN_CHECK_BATCHES, t_time=WN_T_TIME,
+                          time_batches=WN_TIME_BATCHES, reps=2):
+    """The sampler kernel against its plain version over T steps at each
+    of ``batches``, then the kernel's time for ``t_time`` steps at each
+    of ``time_batches``.  Returns ({B: measurements at T}, {B: timing at
+    t_time})."""
+    from idiaptts_torch.ops import cuda_wavenet as cw
+    w = wavenet_model(torch, layers).to(device).sampler().weights
+    gen = torch.Generator(device=device).manual_seed(2024)
+    out = {}
+    for B in batches:
+        shape = "T={},B={},L={},C={}".format(T, B, len(w.dilations), w.C)
+        cond = 0.3 * torch.randn(T, B, w.C, generator=gen, device=device)
+        teacher = torch.randint(0, 256, (T, B), generator=gen,
+                                device=device, dtype=torch.int32)
+        u = torch.rand(T, B, generator=gen, device=device)
+
+        # Forced mode: the logits for a random teacher signal.
+        _, lk = cw.sample(w, cond, forced=teacher, want_logits=True)
+        _, lp = cw.sample_plain(w, cond, forced=teacher, want_logits=True)
+        scale = lp.abs().max().item()
+        err = (lk - lp).abs().max().item()
+        _check("wavenet_sampler", err / scale, WN_TOL,
+               "forced logits {} (rel)".format(shape))
+
+        # Greedy: each sample is the first argmax of the logits the kernel
+        # gives for that history in forced mode.
+        greedy, _ = cw.sample(w, cond, temperature=0.0)
+        _, lg = cw.sample(w, cond, forced=greedy, want_logits=True)
+        if not torch.equal(greedy.long(), torch.argmax(lg, dim=-1)):
+            fail("wavenet_sampler greedy samples are not the argmax of its "
+                 "forced logits ({})".format(shape))
+        else:
+            log("  wavenet_sampler    greedy {}: every sample is the argmax "
+                "of the kernel's forced logits".format(shape))
+
+        # Free run, the same uniforms in both.  A draw may differ only
+        # where U lies near a CDF boundary: logits that differ by at most
+        # d move each boundary by less than exp(2 d) - 1 in probability.
+        sk, _ = cw.sample(w, cond, uniforms=u)
+        sp, plain_ms = timed_once(torch, lambda: cw.sample_plain(
+            w, cond, uniforms=u)[0])
+        ms = cuda_ms(torch, lambda: cw.sample(w, cond, uniforms=u), 3)
+        _, lk_hist = cw.sample(w, cond, forced=sk, want_logits=True)
+        _, lp_hist = cw.sample_plain(w, cond, forced=sk, want_logits=True)
+        d_hist = (lk_hist - lp_hist).abs().max().item()
+        _check("wavenet_sampler", d_hist / scale, WN_TOL,
+               "logits on the free run {} (rel)".format(shape))
+        tie = float(np.expm1(2.0 * max(d_hist, 1e-6)))
+        flat = lp_hist.reshape(T * B, -1)
+        redraw = cw.draw(flat, u.reshape(-1), 1.0, w.out_channels
+                         ).reshape(T, B)
+        margin = cw.cdf_margin(flat, u.reshape(-1)).reshape(T, B)
+        off = sk != redraw
+        worst = margin[off].max().item() if off.any() else 0.0
+        same_rows = int((sk == sp).all(dim=0).sum().item())
+        first = [int(torch.nonzero(sk[:, b] != sp[:, b])[0])
+                 for b in range(B) if not torch.equal(sk[:, b], sp[:, b])]
+        log("  wavenet_sampler    free run {}: {}/{} rows identical to the "
+            "plain run (first divergence at steps {}); {} of {} kernel draws "
+            "differ from the plain draw on the same history, largest CDF "
+            "margin among them {:.3e} (tol {:.3e}); smallest margin over "
+            "all draws {:.3e}; {} distinct classes".format(
+                shape, same_rows, B, first, int(off.sum()), T * B, worst,
+                tie, margin.min().item(), len(torch.unique(sk))))
+        if worst > tie:
+            fail("wavenet_sampler free run {}: a draw differs from the plain "
+                 "draw at CDF margin {:.3e} > {:.3e}".format(shape, worst,
+                                                             tie))
+        if len(torch.unique(sk)) < 16:
+            fail("wavenet_sampler free run {}: only {} distinct classes"
+                 .format(shape, len(torch.unique(sk))))
+        bound_ms, bound_by = wavenet_bound(w, T, B)
+        out[B] = dict(shape=shape, max_abs_err=err, logits_scale=scale,
+                      ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None,
+                      free_run_rows_identical=same_rows,
+                      free_run_draws_off=int(off.sum()),
+                      free_run_worst_margin=worst)
+        log("  wavenet_sampler    {}: kernel {:.3f} ms ({:.2f} us/step) | "
+            "plain {:.1f} ms ({:.3f} ms/step) | bound {:.5f} ms ({})".format(
+                shape, ms, ms * 1e3 / T, plain_ms, plain_ms / T, bound_ms,
+                bound_by))
+        del lk, lp, lg, lk_hist, lp_hist
+
+    timing = {}
+    for B in time_batches:
+        cond = 0.3 * torch.randn(t_time, B, w.C, generator=gen,
+                                 device=device)
+        u = torch.rand(t_time, B, generator=gen, device=device)
+        ms = cuda_ms(torch, lambda: cw.sample(w, cond, uniforms=u), reps)
+        bound_ms, bound_by = wavenet_bound(w, t_time, B)
+        audio_s = B * t_time / FS
+        timing[B] = dict(T=t_time, ms=ms, us_per_step=ms * 1e3 / t_time,
+                         xrt=audio_s / (ms / 1e3), bound_ms=bound_ms,
+                         bound_by=bound_by)
+        log("  wavenet_sampler    T={} B={:<3d}: {:9.3f} ms = {:.2f} us/step"
+            " = {:.1f}x realtime | bound {:.5f} ms ({}) [plain version not "
+            "timed at this T]".format(t_time, B, ms, ms * 1e3 / t_time,
+                                      timing[B]["xrt"], bound_ms, bound_by))
+        del cond, u
+    return out, timing
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+def write_wavenet_checkpoint(torch, model, directory):
+    """config.json and params_last in the port's checkpoint format."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        f.write(model.config.to_json())
+    torch.save({"params": {k: v.detach().cpu() for k, v in
+                           model.state_dict().items()}},
+               os.path.join(directory, "params_last"))
+
+
+def fixture_world_features():
+    """{id: (frames, 23)} WORLD features of the fixture utterances, read
+    with the port's reader."""
+    from idiaptts_torch.data.world_feat import WorldFeatLabelGen
+    with open(os.path.join(FIXTURES, "file_id_list.txt")) as f:
+        ids = [line.strip() for line in f if line.strip()]
+    return {i: WorldFeatLabelGen.load_sample(
+        i, os.path.join(FIXTURES, "WORLD"), num_coded_sps=NUM_SPS)
+        for i in ids}
+
+
+def vocode(torch, device, workdir, model, feats):
+    """The Synthesiser's WaveNet backend on ``device`` for every utterance
+    of ``feats``; returns (launches, stats)."""
+    from idiaptts_torch.hparams import ExtendedHParams
+    from idiaptts_torch.ops import audio_io, dispatch
+    from idiaptts_torch.synth.synthesiser import Synthesiser
+    ckpt = os.path.join(workdir, "wavenet")
+    write_wavenet_checkpoint(torch, model, ckpt)
+    hp = ExtendedHParams.create_hparams()
+    hp.device = str(device)
+    hp.add_hparams(synth_vocoder_path=ckpt)
+    hp.synth_dir = os.path.join(workdir, "synth")
+    hp.synth_fs = FS
+    hp.num_coded_sps = NUM_SPS
+    dispatch.reset_counts()
+    t0 = time.perf_counter()
+    paths = Synthesiser.run_r9y9wavenet_mulaw_world_feats_synth(feats, hp)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dispatch.counts()
+    log("  launches during vocoding:", json.dumps(launches))
+    require_launches(launches, VOCODE_KERNELS, "vocoding")
+    if sorted(paths) != sorted(feats):
+        fail("vocoding wrote {} files for {} utterances".format(
+            len(paths), len(feats)))
+    for name, f in feats.items():
+        raw, fs = audio_io.get_raw(paths[name])
+        want = len(f) * WN_HOP
+        ok = (fs == FS and raw.shape == (want,)
+              and np.all(np.isfinite(raw)) and np.abs(raw).max() <= 1.0
+              and np.ptp(raw) > 0)
+        log("  {}: {} frames -> {} samples at {} Hz, peak {:.4f}, {} "
+            "distinct values".format(name, len(f), raw.size, fs,
+                                     float(np.abs(raw).max()),
+                                     len(np.unique(raw))))
+        if not ok:
+            fail("vocoding {}: want {} finite, non-constant samples in "
+                 "[-1, 1] at {} Hz".format(name, want, FS))
+    frames = [len(f) for f in feats.values()]
+    audio_s = sum(frames) * WN_HOP / FS
+    stats = dict(batch=len(frames), T=max(frames) * WN_HOP,
+                 audio_s=audio_s, wall_s=wall_s, xrt=audio_s / wall_s)
+    log("  vocoded {} utterances ({:.2f} s of audio, padded T={}) in "
+        "{:.3f} s wall (checkpoint load, packing, one sampler launch, wav "
+        "writes) = {:.2f}x realtime".format(len(frames), audio_s, stats["T"],
+                                           wall_s, stats["xrt"]))
+    return launches, stats
+
+
+def vocode_against_cpu(torch, device, model, feats, T=WN_T_CPU):
+    """One utterance's first T samples in forced mode, with the teacher
+    drawn on the card: the card's sampler logits against the port's CPU
+    path (the plain sampler) and against the teacher-forced parallel net
+    on the CPU."""
+    from idiaptts_torch.ops.interpolation import sample_linearly
+    cond = torch.from_numpy(sample_linearly(feats, WN_HOP)[:T])[None]
+    card = copy.deepcopy(model).to(device)
+    teacher, _ = card.sampler()(cond.to(device), generator=torch.Generator(
+        device=device).manual_seed(3))
+    _, lk = card.sampler()(cond.to(device), forced=teacher)
+    cpu = copy.deepcopy(model).to("cpu")
+    _, lc = cpu.sampler()(cond, forced=teacher.cpu())
+    with torch.no_grad():
+        net = cpu({"cond": cond, "target_quantised": teacher.cpu()})["logits"]
+    scale = lc.abs().max().item()
+    _check("vocode forced", (lk.cpu() - lc).abs().max().item() / scale,
+           WN_TOL, "card vs CPU sampler, B=1 T={} (rel)".format(T))
+    _check("vocode forced", (lk.cpu() - net).abs().max().item() / scale,
+           WN_NET_TOL, "card vs CPU parallel net, T={} (rel)".format(T))
+
+
 def require_launches(launches, names, path):
     """Every kernel of a path must have launched during its run."""
     missing = [k for k in names if launches.get(k, 0) < 1]
@@ -892,7 +1176,8 @@ def main():
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from idiaptts_torch.ops import cuda_lstm, cuda_mlpg, dispatch  # noqa: F401
+    from idiaptts_torch.ops import (cuda_lstm, cuda_mlpg,  # noqa: F401
+                                    cuda_wavenet, dispatch)
 
     log("== phase 1: environment")
     card = environment(torch)
@@ -949,19 +1234,38 @@ def main():
     step_timing = time_train_step(torch, device, card)
     log("  train step timing:", json.dumps({str(k): v for k, v in
                                              step_timing.items()}))
+    torch.cuda.empty_cache()
+
+    log("== phase 7: WaveNet sampler kernel against its plain version, "
+        "{} layers, C={} [{}]".format(WN_LAYERS, WN_COND, card))
+    wres, wtime = wavenet_kernel_checks(torch, device)
+    torch.cuda.empty_cache()
+
+    log("== phase 8: WaveNet vocoding path at full width through "
+        "Synthesiser on {}".format(device))
+    wn_model = wavenet_model(torch)
+    feats = fixture_world_features()
+    with tempfile.TemporaryDirectory() as workdir:
+        vocode_launches, vstats = vocode(torch, device, workdir, wn_model,
+                                         feats)
+    vocode_against_cpu(torch, device, wn_model, next(iter(feats.values())))
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         if name in kres:        # serving shapes (phase 3)
             first, second = kres[name][BATCHES[0]], kres[name][BATCHES[1]]
-        else:                   # training shapes (phase 5)
+        elif name in tres:      # training shapes (phase 5)
             first = tres[name][TRAIN_BATCHES[0]]
             second = tres[name][TRAIN_BATCHES[1]]
+        else:                   # sampler shapes (phase 7)
+            first = wres[WN_CHECK_BATCHES[0]]
+            second = wres[WN_CHECK_BATCHES[-1]]
+        by_path = {"serve": serve_launches[name],
+                   "train": train_launches[name],
+                   "vocode": vocode_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces,
-                 "launches": serve_launches[name] + train_launches[name],
-                 "launches_by_path": {"serve": serve_launches[name],
-                                      "train": train_launches[name]},
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
                  **{k: first[k] for k in (
                      "max_abs_err", "ms", "plain_ms", "bound_ms",
                      "bound_by", "library_ms", "shape")},
@@ -971,6 +1275,9 @@ def main():
             entry["also_replaces"] = "idiaptts_tpu/ops/pallas_lstm.py:742"
         if name == "bilstm_recurrence_train":
             entry["also_replaces"] = "idiaptts_tpu/ops/pallas_lstm.py:742"
+        if name == "wavenet_sampler":
+            entry["one_second_of_audio"] = wtime
+            entry["vocode_path"] = vstats
         for k in ("layer_max_abs_err", "layer_ms", "layer_plain_ms"):
             if k in first:
                 entry[k] = first[k]

@@ -298,6 +298,18 @@ class WorldFeatLabelGen(NpzDataReader, LabelGen):
         bap = sample[:, pos:pos + num_bap]
         return coded_sp, lf0, vuv, bap
 
+    @staticmethod
+    def convert_from_world_features(coded_sp, lf0, vuv, bap):
+        """(coded_sp, lf0, vuv, bap) statics -> one [sp, lf0, vuv, bap]
+        matrix: the inverse of :meth:`convert_to_world_features`."""
+        if lf0.ndim < 2:
+            lf0 = lf0[:, None]
+        if vuv.ndim < 2:
+            vuv = vuv[:, None]
+        if bap.ndim < 2:
+            bap = bap[:, None]
+        return np.concatenate([coded_sp, lf0, vuv, bap], axis=1)
+
     def postprocess_sample(self, sample, feature_idx=0, norm_params=None,
                            apply_mlpg=None):
         raise NotImplementedError(_LATER_MLPG)

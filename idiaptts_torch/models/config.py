@@ -79,6 +79,8 @@ _PORTED = {
         ("idiaptts_torch.models.rnn_dyn", "LayerConfig"),
     ("idiaptts_tpu.models.rnn_dyn", "EmbeddingConfig"):
         ("idiaptts_torch.models.rnn_dyn", "EmbeddingConfig"),
+    ("idiaptts_tpu.models.wavenet", "WaveNetWrapper.Config"):
+        ("idiaptts_torch.models.wavenet", "WaveNetWrapper.Config"),
 }
 
 

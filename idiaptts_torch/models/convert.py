@@ -1,5 +1,5 @@
-"""Weight conversion between the JAX package's rnn_dyn acoustic model and
-the port's, both ways.
+"""Weight conversion between the JAX package's models (the rnn_dyn
+acoustic model and the WaveNet vocoder) and the port's, both ways.
 
 The JAX model's flax parameter tree, given as nested dicts of numpy
 arrays, becomes the port's state dict (:func:`flax_to_state_dict`), and
@@ -15,8 +15,11 @@ adjustments:
 Covered leaves: the Dense ``g{i}_Linear_{j}`` ``kernel (in, out)`` and
 ``bias (out,)`` (``rnn_dyn.py:396-401``) and ``_BiFastLSTM``'s
 ``Wx (2, D, 4F)``, ``Wh (2, F, 4F)`` and ``b (2, 4F)`` under
-``g{i}_LSTM/bi{layer}`` (``rnn_dyn.py:172-176``).  Layouts are the same
-in both packages, so no leaf is transposed.
+``g{i}_LSTM/bi{layer}`` (``rnn_dyn.py:172-176``); WaveNet's
+``wavenet/input_embed/embedding (out, R)``, ``block_{i}/dilated/kernel
+(2, R, G)`` and the ``cond``, ``skip``, ``res``, ``post1`` and ``post2``
+Dense ``kernel (in, out)`` and ``bias`` (``wavenet.py:26-88``).
+Layouts are the same in both packages, so no leaf is transposed.
 """
 
 from collections.abc import Mapping

@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from idiaptts_torch.ops import cuda_lstm, cuda_mlpg, dispatch
+from idiaptts_torch.models.wavenet import WaveNetWrapper
+from idiaptts_torch.ops import cuda_lstm, cuda_mlpg, cuda_wavenet, dispatch
 from idiaptts_torch.ops.mlpg import mlpg_factorise
 
 pytestmark = pytest.mark.cuda
@@ -172,3 +173,93 @@ def test_layer_autograd_on_the_card_matches_plain_autograd(dev):
         scale = p.grad.float().abs().max().item()
         assert (o.grad.float() - p.grad.float()).abs().max().item() \
             <= 2e-2 * scale
+
+
+# WaveNet sampler kernel vs its plain version: bf16 operands and float32
+# sums in both, summed in other orders, so z (rounded to bf16) can land
+# one bf16 ulp apart and move later logits; bound: 4 bf16 ulps (2**-6)
+# of the logits' largest magnitude.
+WAVENET_TOL = 2.0 ** -6
+
+
+def _wavenet(dev, layers=4, C=23, out_channels=256, seed=0):
+    cfg = WaveNetWrapper.Config(input_names=("cond",),
+                                output_names=("logits",),
+                                out_channels=out_channels,
+                                num_layers=layers, num_stacks=2,
+                                cond_channels=C)
+    model = cfg.create_model(torch.Generator().manual_seed(seed)).to(dev)
+    return model.sampler().weights
+
+
+def _wavenet_inputs(dev, T, B, C=23, seed=0):
+    g = _gen(dev, seed)
+    cond = torch.randn(T, B, C, generator=g, device=dev)
+    forced = torch.randint(0, 256, (T, B), generator=g, device=dev,
+                           dtype=torch.int32)
+    uniforms = torch.rand(T, B, generator=g, device=dev)
+    return cond, forced, uniforms
+
+
+@pytest.mark.parametrize("T,B,layers,C", [(1, 1, 2, 23), (70, 3, 4, 23),
+                                          (200, 17, 6, 63), (40, 33, 4, 9)])
+def test_wavenet_forced_logits_match_plain(dev, T, B, layers, C):
+    w = _wavenet(dev, layers, C)
+    cond, forced, _ = _wavenet_inputs(dev, T, B, C)
+    before = cuda_wavenet.SAMPLER.launches
+    s, logits = cuda_wavenet.sample(w, cond, forced=forced,
+                                    want_logits=True)
+    assert cuda_wavenet.SAMPLER.launches == before + 1
+    assert torch.equal(s, forced)
+    _, ref = cuda_wavenet.sample_plain(w, cond, forced=forced,
+                                       want_logits=True)
+    torch.testing.assert_close(logits, ref, rtol=0, atol=WAVENET_TOL
+                               * ref.abs().max().item())
+
+
+def test_wavenet_greedy_is_argmax_of_kernel_logits(dev):
+    w = _wavenet(dev)
+    cond, _, _ = _wavenet_inputs(dev, 50, 5)
+    s, logits = cuda_wavenet.sample(w, cond, temperature=0.0,
+                                    want_logits=True)
+    assert torch.equal(s.long(), torch.argmax(logits, dim=-1))
+
+
+@pytest.mark.parametrize("B", [1, 16, 20])
+def test_wavenet_free_run_matches_plain_given_uniforms(dev, B):
+    """Each kernel draw equals the plain draw from the plain version's
+    logits on the kernel's own history, except where U lies within
+    2 * the logits tolerance of a CDF boundary."""
+    w = _wavenet(dev, seed=B)
+    T = 120
+    cond, _, u = _wavenet_inputs(dev, T, B, seed=B)
+    s, _ = cuda_wavenet.sample(w, cond, uniforms=u)
+    _, ref_logits = cuda_wavenet.sample_plain(w, cond, forced=s,
+                                              want_logits=True)
+    tol = 2 * WAVENET_TOL * ref_logits.abs().max().item()
+    ref = cuda_wavenet.draw(ref_logits.reshape(T * B, -1), u.reshape(-1),
+                            1.0, 256).reshape(T, B)
+    margin = cuda_wavenet.cdf_margin(ref_logits.reshape(T * B, -1),
+                                     u.reshape(-1)).reshape(T, B)
+    assert torch.all((s == ref) | (margin <= tol))
+    assert len(torch.unique(s)) > 5
+
+
+def test_wavenet_never_draws_a_padding_class(dev):
+    w = _wavenet(dev, out_channels=200)
+    cond, _, _ = _wavenet_inputs(dev, 60, 4)
+    top = torch.full((60, 4), 1.0 - 2.0 ** -24, device=dev)
+    s, _ = cuda_wavenet.sample(w, cond, uniforms=top)
+    assert int(s.max()) <= 199
+    low, _ = cuda_wavenet.sample(w, cond, uniforms=torch.zeros_like(top))
+    assert int(low.min()) == 0
+
+
+def test_wavenet_kernel_refuses_unsupported_width(dev):
+    cfg = WaveNetWrapper.Config(input_names=("cond",),
+                                output_names=("logits",), num_layers=2,
+                                residual_channels=32, cond_channels=8)
+    w = cfg.create_model().to(dev).sampler().weights
+    with pytest.raises(ValueError, match="built for"):
+        cuda_wavenet.sample(w, torch.zeros(3, 1, 8, device=dev),
+                            temperature=0.0)

@@ -26,13 +26,19 @@ MODULES = [
     "idiaptts_torch.ops.mcep",
     "idiaptts_torch.ops.world.d4c",
     "idiaptts_torch.ops.world.synthesis",
+    "idiaptts_torch.ops.mulaw",
+    "idiaptts_torch.ops.audio_io",
+    "idiaptts_torch.ops.interpolation",
+    "idiaptts_torch.ops.cuda_wavenet",
     "idiaptts_torch.models.config",
     "idiaptts_torch.models.losses",
     "idiaptts_torch.models.named",
     "idiaptts_torch.models.rnn_dyn",
+    "idiaptts_torch.models.wavenet",
     "idiaptts_torch.models.convert",
     "idiaptts_torch.synth.pipeline",
     "idiaptts_torch.synth.server",
+    "idiaptts_torch.synth.synthesiser",
     "idiaptts_torch.data.normalisation",
     "idiaptts_torch.data.reader",
     "idiaptts_torch.data.dataset",

@@ -262,5 +262,5 @@ def test_jax_config_json_loads_as_port_config():
     assert type(again) is torch_rnn.RNNDyn.Config
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ModelConfig.from_json(json.dumps(
-            {"__class__": "idiaptts_tpu.models.wavenet:WaveNetWrapper.Config",
+            {"__class__": "idiaptts_tpu.models.vtln:AllPassWarpLayer.Config",
              "input_names": ["x"]}))

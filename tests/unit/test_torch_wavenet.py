@@ -1,0 +1,423 @@
+"""Parity of the port's WaveNet vocoding path (idiaptts_torch.ops.mulaw,
+ops.cuda_wavenet's plain sampler, models.wavenet, synth.synthesiser)
+with the JAX package's, at small size (4 layers, production widths,
+C = 23, B <= 3, T <= 81) on the CPU.  The JAX sampler runs in Pallas
+interpret mode.  Seeded numpy inputs go to both."""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from idiaptts_tpu.data.world_feat import WorldFeatLabelGen as JWorldFeat
+from idiaptts_tpu.models.wavenet import WaveNet as JWaveNet
+from idiaptts_tpu.models.wavenet import WaveNetWrapper as JWrapper
+from idiaptts_tpu.ops import interpolation as jax_interp
+from idiaptts_tpu.ops import mulaw as jax_mulaw
+from idiaptts_tpu.ops import pallas_wavenet as pw
+from idiaptts_torch.data.world_feat import WorldFeatLabelGen
+from idiaptts_torch.hparams import ExtendedHParams
+from idiaptts_torch.models.convert import (flax_to_state_dict,
+                                           state_dict_to_flax)
+from idiaptts_torch.models.wavenet import (WaveNetVocoder, WaveNetWrapper,
+                                           generate)
+from idiaptts_torch.ops import audio_io, cuda_wavenet
+from idiaptts_torch.ops import mulaw as torch_mulaw
+from idiaptts_torch.ops.interpolation import sample_linearly
+from idiaptts_torch.synth.synthesiser import Synthesiser
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "..", "fixtures")
+LAYERS, C = 4, 23
+# Port parallel net vs the JAX net, and the port's forced-mode sampler vs
+# either net, relative to the largest |logit|: bf16 layers rounded in
+# other places (XLA's CPU bf16 dots, ROADMAP fault 3.2) and the sampler's
+# float32 sums against the net's bf16 ones.  Measured 5.9e-3 (seed 0);
+# the JAX package holds its own sampler to its net at 2e-2.
+NET_TOL = 2e-2
+# Port sampler vs the JAX sampler in forced mode: both keep float32 sums,
+# but the JAX kernel lifts the residual update into the gate weights,
+# which rounds them to bf16 elsewhere.  Measured 3.5e-3 (seed 0).
+SAMPLER_TOL = 1e-2
+# A free run may leave the JAX sampler's path only at a draw whose
+# uniform lies this close (in probability) to a CDF boundary: the two
+# samplers' logits differ by up to SAMPLER_TOL of their scale.
+TIE_TOL = 1e-2
+
+
+def _jax_setup(B=2, T=81, seed=0, out_channels=256):
+    net = JWaveNet(out_channels=out_channels, num_layers=LAYERS,
+                   num_stacks=2)
+    cfg = JWrapper.Config(input_names=("cond",), output_names=("logits",),
+                          out_channels=out_channels, num_layers=LAYERS,
+                          num_stacks=2)
+    rs = np.random.RandomState(seed)
+    cond = (rs.randn(B, T, C) * 0.3).astype(np.float32)
+    params = net.init({"params": jax.random.PRNGKey(seed)},
+                      jnp.zeros((B, T), jnp.int32), jnp.asarray(cond))
+    forced = rs.randint(0, out_channels, (B, T)).astype(np.int32)
+    return net, cfg, params, cond, forced
+
+
+def _port_model(params, out_channels=256):
+    cfg = WaveNetWrapper.Config(
+        input_names=("cond",), output_names=("logits",),
+        out_channels=out_channels, num_layers=LAYERS, num_stacks=2,
+        cond_channels=C)
+    model = WaveNetWrapper(cfg)
+    model.load_state_dict(flax_to_state_dict(
+        {"params": {"wavenet": params["params"]}}))
+    return model
+
+
+def _jax_uniforms(seed, B, T):
+    """The draw the JAX sampler makes for (B, T) (pallas_wavenet.py:258)."""
+    Bp = -(-B // 8) * 8
+    T_pad = -(-T // pw._TIME_BLOCK) * pw._TIME_BLOCK
+    u = jax.random.uniform(jax.random.PRNGKey(seed), (T_pad, Bp),
+                           jnp.float32)
+    return np.array(u)[:T, :B]
+
+
+def _assert_same_path(ours, theirs, ours_logits, uniforms, tol):
+    """Free runs with one draw: equal samples, except that a row may leave
+    the other's path at a draw whose uniform lies within ``tol`` of a CDF
+    boundary of our distribution there (identical history up to it)."""
+    for b in range(ours.shape[0]):
+        diff = np.nonzero(ours[b] != theirs[b])[0]
+        if diff.size == 0:
+            continue
+        t = diff[0]
+        margin = cuda_wavenet.cdf_margin(
+            torch.as_tensor(ours_logits[b, t:t + 1]),
+            torch.as_tensor(uniforms[t:t + 1, b])).item()
+        assert margin <= tol, (b, t, margin)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+def test_mulaw_matches_jax(kind):
+    x = np.random.RandomState(0).uniform(-1, 1, 1000).astype(np.float32)
+    q = np.random.RandomState(1).randint(0, 256, 1000)
+    wrap = torch.from_numpy if kind == "tensor" else np.asarray
+
+    def ours(fn, a):
+        out = fn(wrap(a))
+        return out.numpy() if kind == "tensor" else out
+
+    # numpy input: the same numpy expressions; tensor input: float32 ops
+    # in another library (a few float32 ulps).
+    tol = 0 if kind == "numpy" else 1e-6
+    np.testing.assert_allclose(ours(torch_mulaw.mulaw, x),
+                               jax_mulaw.mulaw(x), atol=tol, rtol=0)
+    np.testing.assert_allclose(ours(torch_mulaw.inv_mulaw, x),
+                               jax_mulaw.inv_mulaw(x), atol=tol, rtol=0)
+    np.testing.assert_array_equal(ours(torch_mulaw.mulaw_quantize, x),
+                                  jax_mulaw.mulaw_quantize(x))
+    np.testing.assert_allclose(
+        ours(torch_mulaw.inv_mulaw_quantize, q),
+        jax_mulaw.inv_mulaw_quantize(q), atol=tol, rtol=0)
+    if kind == "tensor":
+        assert torch_mulaw.mulaw_quantize(wrap(x)).dtype == torch.int32
+
+
+def test_parallel_net_matches_jax():
+    net, _, params, cond, forced = _jax_setup()
+    inputs = np.pad(forced, ((0, 0), (1, 0)), constant_values=128)[:, :-1]
+    ref = np.asarray(net.apply(params, jnp.asarray(inputs),
+                               jnp.asarray(cond)))
+    model = _port_model(params)
+    with torch.no_grad():
+        out = model({"cond": torch.from_numpy(cond),
+                     "target_quantised": torch.from_numpy(forced)})
+    logits = out["logits"].numpy()
+    assert logits.shape == ref.shape
+    scale = np.abs(ref).max()
+    assert np.abs(logits - ref).max() < NET_TOL * scale
+    assert np.corrcoef(logits.ravel(), ref.ravel())[0, 1] > 0.999
+    # No teacher target: placeholder logits keep the dict protocol.
+    with torch.no_grad():
+        empty = model({"cond": torch.from_numpy(cond)})["logits"]
+    assert empty.shape == ref.shape and not empty.any()
+
+
+def test_forced_logits_match_jax_sampler_and_parallel_net():
+    """T = 81 crosses the JAX sampler's 64-step time blocks and many ring
+    wraps of the short dilations."""
+    net, cfg, params, cond, forced = _jax_setup(T=81)
+    _, jl = pw.generate_pallas(params["params"], tuple(net.dilations()),
+                               cfg, jnp.asarray(cond),
+                               forced=jnp.asarray(forced), interpret=True)
+    jl = np.asarray(jl)
+    model = _port_model(params)
+    with torch.no_grad():
+        _, logits = model.sampler()(torch.from_numpy(cond),
+                                    forced=torch.from_numpy(forced))
+        net_logits = model({"cond": torch.from_numpy(cond),
+                            "target_quantised": torch.from_numpy(forced)}
+                           )["logits"].numpy()
+    logits = logits.numpy()
+    scale = np.abs(jl).max()
+    assert np.abs(logits - jl).max() < SAMPLER_TOL * scale
+    assert np.abs(logits - net_logits).max() < NET_TOL * scale
+    assert np.corrcoef(logits.ravel(), net_logits.ravel())[0, 1] > 0.999
+
+
+def test_free_run_matches_jax_sampler_given_its_uniforms():
+    net, cfg, params, cond, _ = _jax_setup(B=3, T=81, seed=1)
+    js, _ = pw.generate_pallas(params["params"], tuple(net.dilations()),
+                               cfg, jnp.asarray(cond), seed=3,
+                               temperature=1.0, interpret=True)
+    js = np.asarray(js)
+    u = _jax_uniforms(3, 3, 81)
+    sampler = _port_model(params).sampler()
+    ours, _ = sampler(torch.from_numpy(cond), uniforms=torch.tensor(u))
+    ours = ours.numpy()
+    _, ours_logits = sampler(torch.from_numpy(cond),
+                             forced=torch.from_numpy(ours))
+    assert len(np.unique(ours)) > 5
+    _assert_same_path(ours, js, ours_logits.numpy(), u, TIE_TOL)
+
+
+def test_greedy_is_first_argmax_of_own_logits():
+    _, _, params, cond, _ = _jax_setup(T=30)
+    samples, logits = _port_model(params).sampler()(
+        torch.from_numpy(cond), temperature=0.0, want_logits=True)
+    np.testing.assert_array_equal(samples.numpy(),
+                                  np.argmax(logits.numpy(), axis=-1))
+
+
+def test_draw_never_reaches_a_padding_class():
+    """U -> 1 draws the last class of non-zero probability, never one of
+    the classes >= out_channels (bias -1e30) and never 256."""
+    rs = np.random.RandomState(0)
+    logits = torch.from_numpy(rs.randn(64, 256).astype(np.float32) * 4)
+    logits[:, 200:] = -1e30
+    u = torch.full((64,), 1.0 - 2.0 ** -24)
+    assert int(cuda_wavenet.draw(logits, u, 1.0, 200).max()) <= 199
+    assert int(cuda_wavenet.draw(logits[:, :], torch.zeros(64), 1.0,
+                                 200).min()) == 0
+    full = torch.from_numpy(rs.randn(64, 256).astype(np.float32) * 4)
+    assert int(cuda_wavenet.draw(full, u, 1.0, 256).max()) <= 255
+
+
+def test_small_out_channels_free_run_stays_in_range():
+    net, _, params, cond, _ = _jax_setup(B=2, T=40, out_channels=200)
+    sampler = _port_model(params, out_channels=200).sampler()
+    top = torch.full((40, 2), 1.0 - 2.0 ** -24)
+    samples, _ = sampler(torch.from_numpy(cond), uniforms=top)
+    assert int(samples.max()) <= 199 and int(samples.min()) >= 0
+    rnd, _ = sampler(torch.from_numpy(cond),
+                     generator=torch.Generator().manual_seed(5))
+    assert int(rnd.max()) <= 199
+
+
+@pytest.mark.parametrize("B", [1, 3, 33])
+def test_any_batch_size(B):
+    """No batch gate; rows are independent (a row's forced logits do not
+    depend on its batch)."""
+    T = 12
+    _, _, params, _, _ = _jax_setup(B=1, T=T)
+    rs = np.random.RandomState(B)
+    cond = torch.from_numpy((rs.randn(B, T, C) * 0.3).astype(np.float32))
+    forced = torch.from_numpy(rs.randint(0, 256, (B, T)).astype(np.int32))
+    sampler = _port_model(params).sampler()
+    samples, logits = sampler(cond, forced=forced)
+    assert samples.shape == (B, T) and logits.shape == (B, T, 256)
+    torch.testing.assert_close(samples, forced)
+    last = B - 1
+    _, alone = sampler(cond[last:], forced=forced[last:])
+    torch.testing.assert_close(logits[last:], alone, rtol=0, atol=1e-5)
+    free, _ = sampler(cond, generator=torch.Generator().manual_seed(0))
+    assert free.shape == (B, T)
+
+
+def test_generate_shape_and_range():
+    _, _, params, cond, _ = _jax_setup(B=2, T=25)
+    model = _port_model(params)
+    cfg = model.config
+    wav = generate(model, cfg, cond, generator=torch.Generator()
+                   .manual_seed(1))
+    assert wav.shape == (2, 25) and wav.dtype == np.float32
+    assert np.all(np.abs(wav) <= 1.0) and np.all(np.isfinite(wav))
+    one = generate(model, cfg, cond[0])
+    assert one.shape == (25,)
+    dev = generate(model, cfg, cond, device_output=True)
+    assert isinstance(dev, torch.Tensor) and dev.shape == (2, 25)
+
+
+def test_convert_round_trip():
+    _, _, params, _, _ = _jax_setup()
+    tree = {"params": {"wavenet": params["params"]}}
+    model = _port_model(params)
+    back = state_dict_to_flax(model.state_dict())
+    flat_a = jax.tree_util.tree_leaves_with_path(tree)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(flat_b[path], np.asarray(leaf))
+
+
+def test_sampler_repacks_when_weights_change():
+    _, _, params, cond, forced = _jax_setup(T=10)
+    model = _port_model(params)
+    first = model.sampler()
+    assert model.sampler() is first
+    _, before = first(torch.from_numpy(cond), forced=torch.from_numpy(forced))
+    with torch.no_grad():
+        model.wavenet.post2.bias.add_(1.0)
+    second = model.sampler()
+    assert second is not first
+    _, after = second(torch.from_numpy(cond), forced=torch.from_numpy(forced))
+    torch.testing.assert_close(after, before + 1.0, rtol=0, atol=1e-5)
+
+
+def test_kernel_blobs_hold_the_weights_in_fragment_order():
+    """The CUDA kernel's view of its weight blobs (offsets and mma
+    B-fragment indexing as in csrc/wavenet_sampler.cu) gives back the
+    plain layout."""
+    _, _, params, _, _ = _jax_setup()
+    w = _port_model(params).sampler().weights
+    layers, post, dil, offs, Cp = w.kernel_args()
+    R = Ca = S = 64
+    K1 = 2 * R + Cp
+
+    def unfragment(raw, K, N):
+        frags = raw.view(torch.bfloat16).reshape(N // 8, K // 16, 32, 4)
+        out = torch.empty(K, N, dtype=torch.bfloat16)
+        for lane in range(32):
+            g, q = lane // 4, lane % 4
+            for e in range(4):
+                k = 2 * q + (e & 1) + 8 * (e >> 1)
+                for nt in range(N // 8):
+                    out[k::16, nt * 8 + g] = frags[nt, :, lane, e]
+        return out
+
+    gate_bytes, sr_bytes = K1 * 2 * Ca * 2, Ca * (S + R) * 2
+    assert layers.shape == (LAYERS, gate_bytes + sr_bytes + 2 * 128 * 4)
+    for j in range(LAYERS):
+        blob = layers[j]
+        w1 = unfragment(blob[:gate_bytes], K1, 2 * Ca)
+        torch.testing.assert_close(w1[:2 * R + C], w.w1[j], rtol=0, atol=0)
+        assert not w1[2 * R + C:].float().abs().any()
+        w2 = unfragment(blob[gate_bytes:gate_bytes + sr_bytes], Ca, S + R)
+        torch.testing.assert_close(w2, w.w2[j], rtol=0, atol=0)
+        tail = blob[gate_bytes + sr_bytes:].view(torch.float32)
+        torch.testing.assert_close(tail[:128], w.b1[j], rtol=0, atol=0)
+        torch.testing.assert_close(tail[128:], w.b2[j], rtol=0, atol=0)
+    p1 = unfragment(post[:S * S * 2], S, S)
+    torch.testing.assert_close(p1, w.p1, rtol=0, atol=0)
+    rest = post[S * S * 2:].view(torch.float32)
+    torch.testing.assert_close(rest[:S], w.p1b, rtol=0, atol=0)
+    torch.testing.assert_close(rest[S:S + S * 256].reshape(S, 256), w.p2,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(rest[S + S * 256:], w.p2b, rtol=0, atol=0)
+    assert dil.tolist() == [1, 2, 1, 2]
+    assert offs.tolist() == [0, 2, 5, 7] and w.slots == 10
+
+
+def _write_checkpoint(directory, model, config_json=None):
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        f.write(config_json or model.config.to_json())
+    torch.save({"params": {k: v.detach().cpu()
+                           for k, v in model.state_dict().items()}},
+               os.path.join(directory, "params_last"))
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_vocoder_loads_a_port_checkpoint(tmp_path, writer):
+    """config.json from the port or from the JAX package (which has no
+    cond_channels: the checkpoint's cond kernel gives it)."""
+    _, _, params, cond, _ = _jax_setup(B=1, T=20)
+    model = _port_model(params)
+    config_json = None
+    if writer == "jax":
+        config_json = JWrapper.Config(
+            input_names=("cond",), output_names=("logits",),
+            num_layers=LAYERS, num_stacks=2).to_json()
+        assert "cond_channels" not in json.loads(config_json)
+    _write_checkpoint(str(tmp_path), model, config_json)
+    voc = WaveNetVocoder.load(str(tmp_path), device="cpu")
+    assert voc.config.cond_channels == C and voc.config.num_layers == LAYERS
+    ours = voc.generate(cond[0], seed=4)
+    ref = generate(model, model.config, cond[0],
+                   generator=torch.Generator().manual_seed(4))
+    np.testing.assert_array_equal(ours, ref)
+
+
+def test_wavenet_entry_points_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without CUDA")
+    _, _, params, _, _ = _jax_setup(B=1, T=5)
+    model = _port_model(params)
+    _write_checkpoint(str(tmp_path), model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        WaveNetVocoder.load(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        WaveNetVocoder(model.config, model)
+    assert ExtendedHParams.create_hparams().device == "cuda"
+
+
+def test_sample_linearly_matches_jax():
+    feats = np.load(os.path.join(FIXTURES, "WORLD", "mcep20",
+                                 "gen-0001.npz"))["mcep"][:20]
+    np.testing.assert_array_equal(sample_linearly(feats, 80),
+                                  jax_interp.sample_linearly(feats, 80))
+
+
+def test_world_feature_conversions_match_jax():
+    feats = WorldFeatLabelGen.load_sample("gen-0002", os.path.join(
+        FIXTURES, "WORLD"), num_coded_sps=20)
+    parts = WorldFeatLabelGen.convert_to_world_features(
+        feats, num_coded_sps=20)
+    back = WorldFeatLabelGen.convert_from_world_features(*parts)
+    np.testing.assert_array_equal(
+        back, JWorldFeat.convert_from_world_features(*parts))
+    np.testing.assert_array_equal(back[:, :21], feats[:, :21])
+    np.testing.assert_array_equal(back[:, 22:], feats[:, 22:])
+
+
+def test_audio_io_round_trip_matches_jax(tmp_path):
+    from idiaptts_tpu.ops import audio_io as jax_audio_io
+    raw = np.random.RandomState(0).uniform(-1.2, 1.2, 400).astype(
+        np.float32)
+    raw[3] = np.nan
+    np.testing.assert_array_equal(audio_io.float_to_pcm16(raw),
+                                  jax_audio_io.float_to_pcm16(raw))
+    path = audio_io.raw_to_file(str(tmp_path / "a.flac"), raw, 16000,
+                                file_format="flac")
+    assert path.endswith("a.wav")
+    back, fs = audio_io.get_raw(path)
+    ref, _ = jax_audio_io.get_raw(path)
+    assert fs == 16000
+    np.testing.assert_array_equal(back, ref)
+
+
+@pytest.mark.parametrize("post_filter", [False, True])
+def test_synthesiser_wavenet_backend_on_a_fixture_utterance(tmp_path,
+                                                            post_filter):
+    """WORLD features of one fixture utterance cut to 20 frames ->
+    Synthesiser -> WaveNetVocoder -> wav of 20 x 80 samples."""
+    _, _, params, _, _ = _jax_setup(B=1, T=5)
+    ckpt = str(tmp_path / "nn")
+    _write_checkpoint(ckpt, _port_model(params))
+    feats = WorldFeatLabelGen.load_sample(
+        "gen-0003", os.path.join(FIXTURES, "WORLD"),
+        num_coded_sps=20)[:20]
+    hp = ExtendedHParams.create_hparams()
+    hp.device = "cpu"
+    hp.add_hparams(synth_vocoder_path=ckpt)
+    hp.synth_dir = str(tmp_path / "synth")
+    hp.num_coded_sps = 20
+    hp.do_post_filtering = post_filter
+    paths = Synthesiser.run_r9y9wavenet_mulaw_world_feats_synth(
+        {"gen-0003": feats, "short": feats[:12]}, hp)
+    assert sorted(paths) == ["gen-0003", "short"]
+    for name, frames in (("gen-0003", 20), ("short", 12)):
+        raw, fs = audio_io.get_raw(paths[name])
+        assert fs == 16000 and raw.shape == (frames * 80,)
+        assert np.all(np.isfinite(raw)) and np.abs(raw).max() <= 0.85 + 1e-4
+        assert len(np.unique(raw)) > 5
