@@ -58,6 +58,30 @@ other error raises at once):
    batch, launch counters reset just before and read just after; six wav
    files of the right length, finite and not constant.  One utterance's
    first 800 samples in forced mode against the port's CPU path.
+9. The trainer's evaluation and WORLD synthesis path.  (a) The one-shot
+   MLPG kernel (K1) against its plain version on systems assembled on
+   the card from seeded window means and variances, at T = 512 with
+   L = 20 and 1 lanes, T = 2048 with L = 60 and T = 1, 2, 3 with L = 20;
+   CUDA-event times beside the dense library solve (``torch.linalg.
+   cholesky`` and ``torch.cholesky_solve`` on the (L, T, T) matrices).
+   (b) Phase 6's trained ``AcousticModelTrainer`` on ``cuda``, launch
+   counters reset just before and read just after: ``benchmark`` on the
+   six utterances (four finite scores, K1 launched 3 x 6 times), the
+   modular ``synth`` (six wav files of the right length, finite; 18 more
+   K1 launches), the modular ``synth`` with the original spectrum and
+   voicing (``synth_load_org_sp``/``_vuv``: six wav files, finite, not
+   constant, peak above 1e-5; 18 more), ``copy_synth`` of two utterances
+   (RMS > 0.01) and the fused ``synth`` (the same lengths; its PCM16
+   difference to the modular synth is logged).  Against the port's CPU
+   path from the same weights: the network output of the six utterances
+   and, per utterance, the denormalised c0, voiced share and unvoiced
+   frames' bap that decide how loud the 3-epoch model's synth is (and,
+   on the card, its statics vocoded with bap 0 in the unvoiced frames,
+   as WORLD does: peak above 1e-5); the MLPG post-processing of
+   one utterance; ``BatchedWorldSynth`` of two; and the modular synth
+   with the original sp and vuv rebuilt from its parts (against the
+   written wavs, and card against CPU by frame energy).  Wall seconds of
+   each call and of the modular path's parts.
 
 The last three lines of standard output are the kernels JSON (every
 kernel with its bound, its plain version's and the library call's time),
@@ -68,6 +92,7 @@ import copy
 import importlib.metadata
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -100,6 +125,8 @@ TRAIN_EPOCHS = 3
 # (K6, :590) and _bilstm_layer_kernel_train (K7, :742); the training
 # recurrence is _bilstm_kernel_train (K4) and the recurrence half of K7.
 KERNEL_SOURCES = {
+    "mlpg_oneshot": ("idiaptts_torch/csrc/mlpg_oneshot.cu",
+                     "idiaptts_tpu/ops/pallas_mlpg.py:33"),
     "banded_solve": ("idiaptts_torch/csrc/banded_solve.cu",
                      "idiaptts_tpu/ops/pallas_mlpg.py:170"),
     "bilstm_recurrence": ("idiaptts_torch/csrc/bilstm_recurrence.cu",
@@ -117,6 +144,24 @@ SERVE_KERNELS = ("banded_solve", "bilstm_proj", "bilstm_recurrence")
 TRAIN_KERNELS = ("bilstm_proj", "bilstm_recurrence_train", "bilstm_bwd",
                  "bilstm_recurrence")
 VOCODE_KERNELS = ("wavenet_sampler",)
+EVAL_KERNELS = ("mlpg_oneshot", "bilstm_proj", "bilstm_recurrence")
+
+# One-shot MLPG (K1) shapes (T, L): one fixture utterance's coded
+# spectrum and lf0 at the serving bucket, the default 60 coefficients at
+# the longest bucket, and the short-T edge cases.
+MLPG_SHAPES = ((512, 20), (512, 1), (2048, 60), (1, 20), (2, 20), (3, 20))
+# K1 vs its plain version, relative to the plain result's largest
+# magnitude: the same float32 operations, FMA contraction aside, whose
+# few ulps the system's conditioning amplifies.
+MLPG_ONESHOT_TOL = 1e-5
+# The MLPG post-processing of one utterance on the card against the CPU
+# path, relative to each stream's largest magnitude: K1 against its
+# plain version plus the on-device system assembly.
+MLPG_STREAM_TOL = 1e-4
+# The modular synth with the original sp and vuv on the card against the
+# CPU path, by 5 ms frame energy with one noise draw: the predicted lf0
+# and bap differ at bf16 scale.  Measured 1.6e-5 dB on an H100.
+ORG_SP_VUV_DB_TOL = 0.05
 
 # WaveNet vocoder at the production widths (WaveNetWrapper.Config
 # defaults), conditioned on the fixture WORLD features (20 mcep + lf0 +
@@ -1160,6 +1205,417 @@ def vocode_against_cpu(torch, device, model, feats, T=WN_T_CPU):
            WN_NET_TOL, "card vs CPU parallel net, T={} (rel)".format(T))
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+def mlpg_system(torch, device, T, L, seed):
+    """A one-shot MLPG system (b, ab0, ab1, ab2), each (T, L), assembled
+    on ``device`` by the port's ``_banded_system`` from seeded window
+    means and variances, as ``mlpg_torch`` assembles it."""
+    from idiaptts_torch.ops import mlpg
+    rs = np.random.RandomState(seed)
+    var = mlpg._boundary_variances(
+        (rs.rand(3 * L) * 0.5 + 0.05).astype(np.float32), L, T).to(device)
+    feats = torch.from_numpy(rs.randn(T, 3, L).astype(np.float32)).to(device)
+    bands, b = mlpg._banded_system(feats, var)
+    return [b.contiguous()] + [a.contiguous() for a in bands]
+
+
+def dense_spd(torch, ab0, ab1, ab2):
+    """The (L, T, T) symmetric matrices of the lower-banded rows."""
+    T = ab0.shape[0]
+    a = torch.diag_embed(ab0.t())
+    for k, band in ((1, ab1), (2, ab2)):
+        if T > k:
+            off = torch.diag_embed(band[:T - k].t(), offset=-k)
+            a = a + off + off.transpose(1, 2)
+    return a
+
+
+def mlpg_kernel_checks(torch, device, shapes=MLPG_SHAPES, reps=20):
+    """K1 against its plain version at each (T, L) of ``shapes``, with
+    CUDA-event times of the kernel, the plain version and the dense
+    library solve.  Returns {(T, L): measurements}."""
+    from idiaptts_torch.ops import cuda_mlpg
+    out = {}
+    for seed, (T, L) in enumerate(shapes):
+        args = mlpg_system(torch, device, T, L, seed)
+        x_k = cuda_mlpg.mlpg_oneshot(*args)
+        x_p = cuda_mlpg.mlpg_oneshot_plain(*args)
+        scale = x_p.abs().max().item()
+        err = (x_k - x_p).abs().max().item()
+        _check("mlpg_oneshot", err / scale, MLPG_ONESHOT_TOL,
+               "T={} L={} (rel)".format(T, L))
+        # Library yardstick: dense Cholesky and solve, O(T^3) per lane.
+        a = dense_spd(torch, *args[1:])
+        rhs = args[0].t().unsqueeze(-1).contiguous()
+
+        def library():
+            chol, _ = torch.linalg.cholesky_ex(a)
+            return torch.cholesky_solve(rhs, chol)
+
+        lib_x = library().squeeze(-1).t()
+        lib_err = (lib_x - x_p).abs().max().item() / scale
+        # Four (T, L) float32 inputs read once and the output written
+        # once; the kernel also writes and reads back a (4, T, L)
+        # scratch.  About 20 float32 operations per element.
+        bound_ms, bound_by = bound(20.0 * T * L, PEAK_F32_FLOPS,
+                                   5 * T * L * 4)
+        out[(T, L)] = dict(
+            shape="T={},L={}".format(T, L), max_abs_err=err,
+            max_rel_err=err / scale, bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms_with_scratch=bound(20.0 * T * L, PEAK_F32_FLOPS,
+                                        13 * T * L * 4)[0],
+            ms=cuda_ms(torch, lambda: cuda_mlpg.mlpg_oneshot(*args), reps),
+            plain_ms=cuda_ms(torch, lambda: cuda_mlpg.mlpg_oneshot_plain(
+                *args), 1),
+            library_ms=cuda_ms(torch, library, 3),
+            library_rel_err=lib_err,
+            library="dense torch.linalg.cholesky_ex + torch.cholesky_solve "
+                    "on (L, T, T) float32, O(T^3)")
+        r = out[(T, L)]
+        log("  mlpg_oneshot       T={:<5d} L={:<3d} kernel {:9.4f} ms "
+            "({:.3f} us/step) | plain {:9.3f} ms | library {:9.4f} ms "
+            "(rel err {:.1e}) | bound {:.6f} ms ({})".format(
+                T, L, r["ms"], r["ms"] * 1e3 / (2 * T), r["plain_ms"],
+                r["library_ms"], lib_err, bound_ms, bound_by))
+        del a, rhs
+    return out
+
+
+def _wav_ok(path, frames):
+    """(samples, ok): a 16 kHz wav of 80 samples a frame, finite."""
+    from idiaptts_torch.ops import audio_io
+    raw, fs = audio_io.get_raw(path)
+    return raw, (fs == FS and raw.shape == (frames * 80,)
+                 and bool(np.all(np.isfinite(raw))))
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _frame_db(wav, hop=80):
+    frames = wav[:len(wav) // hop * hop].reshape(-1, hop).astype(np.float64)
+    return 10.0 * np.log10(np.mean(frames ** 2, axis=1) + 1e-30)
+
+
+def evaluate(torch, device, trainer, hp, workdir, org_feats):
+    """benchmark, modular synth (predicted streams, then the original
+    spectrum and voicing), copy_synth and fused synth of phase 6's
+    trained model on ``device``, with the launch counters reset just
+    before and read just after; then the card against the CPU path and
+    the modular path's parts timed.  Returns (launches, stats)."""
+    from idiaptts_torch.ops import dispatch
+    ids = sorted(org_feats)
+    frames = {i: len(f) for i, f in org_feats.items()}
+    hp.batch_size_benchmark = len(ids)
+    hp.batch_size_synth = len(ids)
+    stats, paths, k1 = {}, {}, []
+    dispatch.reset_counts()
+    scores, stats["benchmark_s"] = _timed(
+        torch, lambda: trainer.benchmark(hp, ids))
+    k1.append(dispatch.counts()["mlpg_oneshot"])
+    hp.use_fused_synth = False
+    hp.synth_dir = os.path.join(workdir, "synth_modular")
+    paths["modular"], stats["modular_synth_s"] = _timed(
+        torch, lambda: trainer.synth(hp, ids))
+    k1.append(dispatch.counts()["mlpg_oneshot"] - sum(k1))
+    # The same path with the original spectrum and voicing: audible
+    # whatever the 3-epoch model predicts, with its pitch and
+    # aperiodicity.
+    hp.synth_dir = os.path.join(workdir, "synth_org_sp_vuv")
+    hp.synth_load_org_sp = hp.synth_load_org_vuv = True
+    try:
+        paths["org_sp_vuv"], stats["org_sp_vuv_synth_s"] = _timed(
+            torch, lambda: trainer.synth(hp, ids))
+    finally:
+        hp.synth_load_org_sp = hp.synth_load_org_vuv = False
+    k1.append(dispatch.counts()["mlpg_oneshot"] - sum(k1))
+    hp.synth_dir = os.path.join(workdir, "copy_synth")
+    paths["copy"], stats["copy_synth_s"] = _timed(
+        torch, lambda: trainer.copy_synth(hp, ids[:2]))
+    hp.use_fused_synth = True
+    hp.synth_dir = os.path.join(workdir, "synth_fused")
+    paths["fused"], stats["fused_synth_s"] = _timed(
+        torch, lambda: trainer.synth(hp, ids))
+    launches = dispatch.counts()
+    k1.append(launches["mlpg_oneshot"] - sum(k1))
+    log("  launches during evaluation:", json.dumps(launches))
+    require_launches(launches, EVAL_KERNELS, "evaluation")
+    stats["scores"] = dict(zip(hp.metrics, (float(v) for v in scores)))
+    log("  benchmark scores:", json.dumps(stats["scores"]))
+    if not (len(scores) == 4 and np.all(np.isfinite(scores))):
+        fail("benchmark gave {} (want four finite scores)".format(scores))
+    log("  mlpg_oneshot launches: benchmark {}, modular synth {}, modular "
+        "synth with original sp and vuv {}, copy and fused synth {}"
+        .format(*k1))
+    n = 3 * len(ids)
+    if k1 != [n, n, n, 0]:
+        fail("mlpg_oneshot launches {} != [{n}, {n}, {n}, 0] (3 per "
+             "utterance per call)".format(k1, n=n))
+    wavs = {}
+    for kind, by_id in paths.items():
+        want = ids[:2] if kind == "copy" else ids
+        if sorted(by_id) != want:
+            fail("{} synth wrote {} for {}".format(kind, sorted(by_id), want))
+            continue
+        for i in want:
+            raw, ok = _wav_ok(by_id[i], frames[i])
+            wavs[kind, i] = raw
+            rms = float(np.sqrt(np.mean(raw.astype(np.float64) ** 2)))
+            peak = float(np.abs(raw).max())
+            log("  {} synth {}: {} samples, rms {:.3e}, peak {:.3e}".format(
+                kind, i, raw.size, rms, peak))
+            if not ok:
+                fail("{} synth {}: want {} finite samples at {} Hz".format(
+                    kind, i, frames[i] * 80, FS))
+            if kind == "copy" and not rms > 0.01:
+                fail("copy_synth {}: rms {} <= 0.01".format(i, rms))
+            if kind == "org_sp_vuv" and not (peak > 1e-5
+                                             and np.ptp(raw) > 0):
+                fail("modular synth with the original sp and vuv {}: "
+                     "constant or peak {} <= 1e-5".format(i, peak))
+    # Fused and modular synth share the model output and the noise seed;
+    # they differ by the MLPG solve (K2 over the padded bucket, K1 per
+    # utterance), within PCM16 rounding.
+    stats["fused_vs_modular_lsb"] = {
+        i: int(np.abs(np.round((wavs["fused", i] - wavs["modular", i])
+                               * 32768.0)).max())
+        for i in ids if ("fused", i) in wavs and ("modular", i) in wavs}
+    log("  fused vs modular synth, max |d| in PCM16 steps:",
+        json.dumps(stats["fused_vs_modular_lsb"]))
+    parts, post = modular_parts_s(torch, trainer, hp, ids, workdir)
+    stats.update(parts)
+    stats.update(evaluate_against_cpu(torch, trainer, hp, ids, org_feats,
+                                      post, wavs))
+    audio_s = sum(frames.values()) * 80 / FS
+    stats["audio_s"] = audio_s
+    log("  wall s for {} utterances ({:.2f} s of audio): benchmark {:.3f}, "
+        "modular synth {:.3f} (original sp and vuv {:.3f}), fused synth "
+        "{:.3f}, copy_synth(2) {:.3f}".format(
+            len(ids), audio_s, stats["benchmark_s"],
+            stats["modular_synth_s"], stats["org_sp_vuv_synth_s"],
+            stats["fused_synth_s"], stats["copy_synth_s"]))
+    return launches, stats
+
+
+def modular_parts_s(torch, trainer, hp, ids, workdir):
+    """The modular synth's parts, timed one after another on the host
+    clock: forward (batched inference), MLPG post-processing (three
+    solves and host round trips per utterance), vocoder
+    (``BatchedWorldSynth``) and wav writes.  Checks that the vocoder's
+    float waveforms are finite and not constant.  Returns ({part: s},
+    {id: post-processed statics})."""
+    from idiaptts_torch.ops import audio_io
+    from idiaptts_torch.synth.synthesiser import Synthesiser
+    results, fwd_s = _timed(torch, lambda: trainer._forward_batched(
+        hp, ids, len(ids), post_process=False, input_only=True))
+    post, post_s = _timed(torch, lambda: {
+        i: trainer._postprocess_sample(s) for i, s in results.items()})
+    synth = Synthesiser._batched_world_synth(
+        NUM_SPS, FS, hp.get("frame_size_ms", 5), hp.get("num_bap", 1),
+        False, None, hp.device)
+    feats = [np.asarray(post[i]["pred_acoustic_features"], np.float32)
+             for i in ids]
+    wavs, voc_s = _timed(torch, lambda: synth(feats))
+    for i, w in zip(ids, wavs):
+        if not (np.all(np.isfinite(w)) and np.ptp(w) > 0):
+            fail("modular synth {}: vocoder output not finite or constant"
+                 .format(i))
+    log("  modular synth vocoder peaks:", ", ".join(
+        "{:.3e}".format(float(np.abs(w).max())) for w in wavs))
+    out_dir = os.path.join(workdir, "parts")
+
+    def write():
+        for i, w in zip(ids, wavs):
+            audio_io.raw_to_file(os.path.join(out_dir, i + ".wav"), w, FS)
+
+    _, write_s = _timed(torch, write)
+    parts = dict(modular_forward_s=fwd_s, modular_postprocess_mlpg_s=post_s,
+                 modular_vocoder_s=voc_s, modular_wav_write_s=write_s)
+    log("  modular synth parts (s):", json.dumps(parts))
+    return parts, {i: post[i]["pred_acoustic_features"] for i in ids}
+
+
+def cpu_trainer(trainer):
+    """A shallow copy of ``trainer`` whose model and readers are on the
+    CPU: the port's CPU path (plain versions) from the same weights."""
+    from idiaptts_torch.train.handler import ModularModelHandler
+    card = trainer.model_handler
+    handler = ModularModelHandler(device="cpu")
+    handler.model = copy.deepcopy(card.model).to("cpu")
+    handler.model_config = card.model_config
+    handler.losses = card.losses
+    cpu = copy.copy(trainer)
+    cpu.model_handler = handler
+    cpu.datareaders = {}
+    for name, reader in trainer.datareaders.items():
+        reader = copy.copy(reader)
+        if hasattr(reader, "device"):
+            reader.device = "cpu"
+        cpu.datareaders[name] = reader
+    return cpu
+
+
+def _witness(feats):
+    """(c0 mean, c0 max, voiced share, mean bap of the unvoiced frames) of
+    [coded_sp | lf0 | vuv | bap]."""
+    unvoiced = feats[:, NUM_SPS + 1] < 0.5
+    return (float(feats[:, 0].mean()), float(feats[:, 0].max()),
+            float(feats[:, NUM_SPS + 1].mean()),
+            float(feats[unvoiced, NUM_SPS + 2].mean()) if unvoiced.any()
+            else 0.0)
+
+
+def _unvoiced_full_noise(feats):
+    """Statics with bap 0 (aperiodicity 1) in the unvoiced frames, as
+    WORLD synthesises unvoiced frames; BatchedWorldSynth, like the JAX
+    package's, scales their noise by the decoded bap."""
+    out = np.array(feats, np.float32, copy=True)
+    out[out[:, NUM_SPS + 1] < 0.5, NUM_SPS + 2] = 0.0
+    return out
+
+
+def _with_org_sp_vuv(feats, org):
+    """Predicted statics with the original spectrum and voicing, as
+    ``gen_waveform`` assembles them for ``synth_load_org_sp/_vuv``."""
+    out = np.array(feats, np.float32, copy=True)
+    n = min(len(org), len(out))
+    out[:n, :NUM_SPS] = org[:n, :NUM_SPS]
+    out[:n, NUM_SPS + 1] = org[:n, NUM_SPS + 1]
+    return out
+
+
+def _max_frame_db(wavs_a, wavs_b):
+    """Largest 5 ms frame-energy difference over the frames within 60 dB
+    of each reference utterance's loudest."""
+    db = 0.0
+    for a, b in zip(wavs_a, wavs_b):
+        d_a, d_b = _frame_db(a), _frame_db(b)
+        loud = d_b > d_b.max() - 60.0
+        db = max(db, float(np.abs(d_a[loud] - d_b[loud]).max()))
+    return db
+
+
+def evaluate_against_cpu(torch, trainer, hp, ids, org_feats, post, wavs):
+    """The evaluation path on the card against the port's CPU path from
+    the same weights: the network output of all six utterances in one
+    padded batch (and, per utterance, the denormalised c0, voiced share
+    and unvoiced bap that decide how loud the synth is, ROADMAP fault
+    3.7, with the statics vocoded on the card without that bap); one
+    utterance's output
+    post-processed by the card's reader and by a CPU reader (MLPG per
+    stream); BatchedWorldSynth of two utterances' original features with
+    one noise draw, by 5 ms frame energy (the harmonic phase drifts by
+    summation order, ROADMAP fault 3.5); and the modular synth with the
+    original sp and vuv, rebuilt from its parts on the card (against the
+    written wavs) and on the CPU (frame energy, one noise draw)."""
+    from idiaptts_torch.ops.world.synthesis import noise_draw
+    from idiaptts_torch.synth.pipeline import BatchedWorldSynth
+    from idiaptts_torch.ops.audio_io import float_to_pcm16
+    from idiaptts_torch.synth.synthesiser import _norm_loudness
+    cpu = cpu_trainer(trainer)
+    raw_card = trainer._forward_batched(hp, ids, len(ids),
+                                        post_process=False, input_only=True)
+    raw_cpu = cpu._forward_batched(hp, ids, len(ids), post_process=False,
+                                   input_only=True)
+    model_rel = max(
+        float(np.abs(raw_card[i]["pred_acoustic_features"]
+                     - raw_cpu[i]["pred_acoustic_features"]).max()
+              / np.abs(raw_cpu[i]["pred_acoustic_features"]).max())
+        for i in ids)
+    # The FC output is bf16: 4 bf16 ulps at the output's magnitude.
+    _check("forward", model_rel, 2.0 ** -6,
+           "{} utts, one padded batch, card vs CPU (rel)".format(len(ids)))
+    post_cpu = {i: cpu._postprocess_sample(raw_cpu[i])[
+        "pred_acoustic_features"] for i in ids}
+    witness = {}
+    for i in ids:
+        card_w, cpu_w = _witness(post[i]), _witness(post_cpu[i])
+        org_w = _witness(org_feats[i])
+        witness[i] = dict(card=card_w, cpu=cpu_w, org=org_w, peak=float(
+            np.abs(wavs["modular", i]).max()) if ("modular", i) in wavs
+            else None)
+        log("  {} c0 mean/max, voiced share, unvoiced bap: card {:.2f}/"
+            "{:.2f}, {:.3f}, {:.2f} | CPU {:.2f}/{:.2f}, {:.3f}, {:.2f} | "
+            "original {:.2f}/{:.2f}, {:.3f}, {:.2f} | modular synth peak "
+            "{:.3e}".format(i, *card_w, *cpu_w, *org_w,
+                            witness[i]["peak"] or 0.0))
+        # Voicing is a decision at 0.5: a prediction within bf16 noise of
+        # it may flip.
+        if abs(card_w[2] - cpu_w[2]) > 0.01:
+            fail("{}: voiced share {} on the card, {} on the CPU".format(
+                i, card_w[2], cpu_w[2]))
+    c0_abs = max(float(np.abs(post[i][:, 0] - post_cpu[i][:, 0]).max())
+                 for i in ids)
+    log("  post-processed c0 card vs CPU: max|d| {:.3e}".format(c0_abs))
+    # The cause of the silent files, on the card: the same statics with
+    # the unvoiced frames' noise unscaled by their predicted bap.
+    synth_card = BatchedWorldSynth(NUM_SPS, FS, device=hp.device)
+    synth_cpu = BatchedWorldSynth(NUM_SPS, FS, device="cpu")
+    full_noise = [float(np.abs(w).max()) for w in synth_card(
+        [_unvoiced_full_noise(post[i]) for i in ids])]
+    log("  vocoder peaks of the predicted statics with bap 0 in unvoiced "
+        "frames:", ", ".join("{:.3e}".format(p) for p in full_noise))
+    if not min(full_noise) > 1e-5:
+        fail("predicted statics with bap 0 in unvoiced frames: peaks {}"
+             .format(full_noise))
+
+    reader = trainer.datareaders["cmp_features"]
+    out = np.asarray(raw_card[ids[0]]["pred_acoustic_features"])
+    card = reader.postprocess_sample(out)
+    one = cpu.datareaders["cmp_features"].postprocess_sample(out)
+    errs = {}
+    for name, cols in (("sp", slice(0, NUM_SPS)),
+                       ("lf0", slice(NUM_SPS, NUM_SPS + 1)),
+                       ("bap", slice(NUM_SPS + 2, NUM_SPS + 3))):
+        errs[name] = float(np.abs(card[:, cols] - one[:, cols]).max()
+                           / np.abs(one[:, cols]).max())
+        _check("mlpg " + name, errs[name], MLPG_STREAM_TOL,
+               "{} T={} card vs CPU (rel)".format(ids[0], len(out)))
+    if not np.array_equal(card[:, NUM_SPS + 1], one[:, NUM_SPS + 1]):
+        fail("post-processed voicing differs between card and CPU")
+
+    feats = [np.asarray(org_feats[i], np.float32) for i in ids[:2]]
+    T = int(np.ceil(max(len(f) for f in feats) / 256) * 256)
+    z = noise_draw(T, 129, torch.Generator().manual_seed(11), "cpu")
+    w_card, w_cpu = synth_card(feats, z=z), synth_cpu(feats, z=z)
+    db = _max_frame_db(w_card, w_cpu)
+    _check("world synth", db, 0.05, "2 utts card vs CPU (frame dB)")
+    head = float(max(np.abs(a[:64 * 80] - b[:64 * 80]).max()
+                     / np.abs(b).max() for a, b in zip(w_card, w_cpu)))
+    log("  world synth first 64 frames card vs CPU: max|d| {:.3e} of peak"
+        .format(head))
+
+    org_card = [_with_org_sp_vuv(post[i], org_feats[i]) for i in ids]
+    org_cpu = [_with_org_sp_vuv(post_cpu[i], org_feats[i]) for i in ids]
+    # The trainer's modular synth draws its noise from seed 0 on the
+    # card: its parts, rebuilt here, give the wavs it wrote.
+    rebuilt = synth_card(org_card)
+    lsb = max(int(np.abs(
+        float_to_pcm16(_norm_loudness(w)).astype(np.int64)
+        - np.round(wavs["org_sp_vuv", i] * 32768.0).astype(np.int64)).max())
+        for i, w in zip(ids, rebuilt) if ("org_sp_vuv", i) in wavs)
+    _check("synth org sp+vuv", lsb, 1, "{} utts written wavs vs parts on "
+           "the card (PCM16 steps)".format(len(ids)))
+    T = int(np.ceil(max(len(f) for f in org_card) / 256) * 256)
+    z = noise_draw(T, 129, torch.Generator().manual_seed(13), "cpu")
+    org_db = _max_frame_db(synth_card(org_card, z=z),
+                           synth_cpu(org_cpu, z=z))
+    _check("synth org sp+vuv", org_db, ORG_SP_VUV_DB_TOL,
+           "{} utts card vs CPU (frame dB)".format(len(ids)))
+    return dict(forward_card_vs_cpu_rel=model_rel,
+                c0_card_vs_cpu_abs=c0_abs, witness=witness,
+                unvoiced_full_noise_peaks=full_noise,
+                mlpg_card_vs_cpu_rel=errs, world_synth_card_vs_cpu_db=db,
+                world_synth_head_rel=head, org_sp_vuv_parts_lsb=lsb,
+                org_sp_vuv_card_vs_cpu_db=org_db)
+
+
 def require_launches(launches, names, path):
     """Every kernel of a path must have launched during its run."""
     missing = [k for k in names if launches.get(k, 0) < 1]
@@ -1219,17 +1675,27 @@ def main():
 
     log("== phase 6: AcousticModelTrainer at full width on {} ({} epochs, "
         "batch 2, 25% validation)".format(device, TRAIN_EPOCHS))
-    with tempfile.TemporaryDirectory() as workdir:
-        trainer, hp = make_trainer(torch, device, workdir)
-        dispatch.reset_counts()
-        val_loss, train_loss = trainer.train(hp)
-        torch.cuda.synchronize()
-        train_launches = dispatch.counts()
-        log("  launches during training:", json.dumps(train_launches))
-        require_launches(train_launches, TRAIN_KERNELS, "training")
-        check_training(torch, trainer, hp, train_loss, val_loss)
-        train_step_against_cpu(torch, trainer)
-    del trainer
+    # The trained model and its workdir serve phase 9 too.
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return _phases_6_to_9(torch, device, card, workdir, kres, tres,
+                              serve_launches)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _phases_6_to_9(torch, device, card, workdir, kres, tres,
+                   serve_launches):
+    from idiaptts_torch.ops import dispatch
+    trainer, hp = make_trainer(torch, device, workdir)
+    dispatch.reset_counts()
+    val_loss, train_loss = trainer.train(hp)
+    torch.cuda.synchronize()
+    train_launches = dispatch.counts()
+    log("  launches during training:", json.dumps(train_launches))
+    require_launches(train_launches, TRAIN_KERNELS, "training")
+    check_training(torch, trainer, hp, train_loss, val_loss)
+    train_step_against_cpu(torch, trainer)
     torch.cuda.empty_cache()
     step_timing = time_train_step(torch, device, card)
     log("  train step timing:", json.dumps({str(k): v for k, v in
@@ -1245,10 +1711,20 @@ def main():
         "Synthesiser on {}".format(device))
     wn_model = wavenet_model(torch)
     feats = fixture_world_features()
-    with tempfile.TemporaryDirectory() as workdir:
-        vocode_launches, vstats = vocode(torch, device, workdir, wn_model,
-                                         feats)
+    vocode_launches, vstats = vocode(torch, device, workdir, wn_model,
+                                     feats)
     vocode_against_cpu(torch, device, wn_model, next(iter(feats.values())))
+    del wn_model
+    torch.cuda.empty_cache()
+
+    log("== phase 9: one-shot MLPG kernel against its plain version [{}]"
+        .format(card))
+    mres = mlpg_kernel_checks(torch, device)
+    torch.cuda.empty_cache()
+    log("== phase 9: evaluation and WORLD synthesis through "
+        "AcousticModelTrainer on {}".format(device))
+    eval_launches, estats = evaluate(torch, device, trainer, hp, workdir,
+                                     feats)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -1257,12 +1733,17 @@ def main():
         elif name in tres:      # training shapes (phase 5)
             first = tres[name][TRAIN_BATCHES[0]]
             second = tres[name][TRAIN_BATCHES[1]]
+        elif name == "mlpg_oneshot":    # evaluation shapes (phase 9)
+            first = mres[MLPG_SHAPES[0]]
+            second = {"T={},L={}".format(*k): v for k, v in mres.items()
+                      if k != MLPG_SHAPES[0]}
         else:                   # sampler shapes (phase 7)
             first = wres[WN_CHECK_BATCHES[0]]
             second = wres[WN_CHECK_BATCHES[-1]]
         by_path = {"serve": serve_launches[name],
                    "train": train_launches[name],
-                   "vocode": vocode_launches[name]}
+                   "vocode": vocode_launches[name],
+                   "evaluate": eval_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -1278,6 +1759,8 @@ def main():
         if name == "wavenet_sampler":
             entry["one_second_of_audio"] = wtime
             entry["vocode_path"] = vstats
+        if name == "mlpg_oneshot":
+            entry["evaluate_path"] = estats
         for k in ("layer_max_abs_err", "layer_ms", "layer_plain_ms"):
             if k in first:
                 entry[k] = first[k]

@@ -1,5 +1,5 @@
-"""WORLD acoustic features: the loading and normalisation half of
-``idiaptts_tpu/data/world_feat.py``.
+"""WORLD acoustic features: the port of ``idiaptts_tpu/data/world_feat.py``
+without extraction and non-cepstral decoding.
 
 Feature layout (the JAX package's and the reference's):
   cmp = [coded_sp(+d+dd) | lf0(+d+dd) | vuv | bap(+d+dd)]
@@ -11,10 +11,14 @@ mean-std_dev per stream directory without).  The raw-binary fixture
 layout (``.mcep``/``.lf0``/... float32 files and
 ``cmp_<sp_type><num>/*.cmp``) loads too.
 
-Not ported yet: extraction from audio (``gen_data``, ROADMAP.md queue 1
-item 10) and the MLPG post-processing of predictions
-(``postprocess_sample``, which needs ``MLPG.generation`` and its kernel,
-queue 1 item 6).
+Post-processing of predictions (``postprocess_sample``): denormalise,
+then per-stream MLPG through ``MLPG.generation`` (the one-shot solve
+kernel) on the reader's ``device`` (``"cuda"`` unless the config says
+``"cpu"``), three solves per utterance (coded spectrum, lf0, bap).
+
+Not ported yet (ROADMAP.md queue 1 item 10): extraction from audio
+(``gen_data``) and the non-cepstral spectrum decoding (``decode_sp``,
+``world_features_to_raw``).
 """
 
 import logging
@@ -25,13 +29,13 @@ import numpy as np
 from idiaptts_torch.data.normalisation import (MeanCovarianceExtractor,
                                                MeanStdDevExtractor)
 from idiaptts_torch.data.reader import LabelGen, NpzDataReader
+from idiaptts_torch.ops.mlpg import MLPG
 
 logger = logging.getLogger(__name__)
 
-_LATER_MLPG = ("WORLD post-processing (MLPG.generation) is not ported yet; "
-               "ROADMAP.md queue 1 item 6 ports it")
-_LATER_EXTRACT = ("WORLD feature extraction is not ported yet; ROADMAP.md "
-                  "queue 1 item 10 ports it")
+_LATER_EXTRACT = ("WORLD feature extraction and non-cepstral spectrum "
+                  "decoding are not ported yet; ROADMAP.md queue 1 item "
+                  "10 ports them")
 
 
 class WorldFeatLabelGen(NpzDataReader, LabelGen):
@@ -57,7 +61,7 @@ class WorldFeatLabelGen(NpzDataReader, LabelGen):
                      sp_type="mcep", mgc_alpha=None,
                      frame_shift_ms=5.0, load_sp=True,
                      load_lf0=True, load_vuv=True, load_bap=True,
-                     apply_mlpg=True, **kwargs):
+                     apply_mlpg=True, device="cuda", **kwargs):
             if norm_type is None:
                 norm_type = (NpzDataReader.Config.NormType.MEAN_VARIANCE
                              if add_deltas else
@@ -86,6 +90,8 @@ class WorldFeatLabelGen(NpzDataReader, LabelGen):
             self.load_vuv = load_vuv
             self.load_bap = load_bap
             self.apply_mlpg = apply_mlpg
+            # Where the MLPG of postprocess_sample runs.
+            self.device = device
 
         def create_reader(self):
             reader = WorldFeatLabelGen(self)
@@ -117,8 +123,12 @@ class WorldFeatLabelGen(NpzDataReader, LabelGen):
         self.load_vuv = config.load_vuv
         self.load_bap = config.load_bap
         self.apply_mlpg = config.apply_mlpg
+        self.device = config.device
         self.covs = [None] * 4
         self.dir_labels = self.directory[0]
+        if config.postprocessing_fn is None:
+            self.postprocessing_fn = lambda sample: self._postprocess_world(
+                sample, apply_mlpg=self.apply_mlpg)
 
     # ------------------------------------------------------------------
     @property
@@ -310,9 +320,62 @@ class WorldFeatLabelGen(NpzDataReader, LabelGen):
             bap = bap[:, None]
         return np.concatenate([coded_sp, lf0, vuv, bap], axis=1)
 
+    # -- post-processing --------------------------------------------------
     def postprocess_sample(self, sample, feature_idx=0, norm_params=None,
                            apply_mlpg=None):
-        raise NotImplementedError(_LATER_MLPG)
+        """Denormalise a (T, cmp) prediction and run MLPG per stream
+        (``apply_mlpg`` defaults to the config's)."""
+        if apply_mlpg is None:
+            apply_mlpg = self.apply_mlpg
+        saved_fn = self.postprocessing_fn
+        saved_params = self.norm_params
+        self.postprocessing_fn = lambda s: self._postprocess_world(
+            s, apply_mlpg=apply_mlpg)
+        if norm_params is not None:
+            self.norm_params = norm_params
+        try:
+            return super().postprocess_sample(sample, feature_idx)
+        finally:
+            self.postprocessing_fn = saved_fn
+            self.norm_params = saved_params
+
+    def _postprocess_world(self, sample, apply_mlpg=True):
+        """Denormalised network output -> [coded_sp, lf0, vuv, bap]
+        statics, with per-stream MLPG on ``self.device`` when deltas are
+        modelled."""
+        if not self.add_deltas:
+            return sample
+        mlpg = MLPG()
+
+        def smooth(block, cov, dim):
+            if not apply_mlpg:
+                return block[:, :dim]
+            return mlpg.generation(block, cov, dim, device=self.device)
+
+        out = []
+        pos = 0
+        if self.load_sp:
+            out.append(smooth(sample[:, pos:pos + self.num_coded_sps * 3],
+                              self.covs[0], self.num_coded_sps))
+            pos += self.num_coded_sps * 3
+        if self.load_lf0:
+            out.append(smooth(sample[:, pos:pos + 3], self.covs[1], 1))
+            pos += 3
+        if self.load_vuv:
+            out.append((sample[:, pos] > 0.5).astype(np.float32)[:, None])
+            pos += 1
+        if self.load_bap:
+            out.append(smooth(sample[:, -self.num_bap * 3:], self.covs[3],
+                              self.num_bap))
+        return np.concatenate(out, axis=1)
+
+    @staticmethod
+    def decode_sp(*args, **kwargs):
+        raise NotImplementedError(_LATER_EXTRACT)
+
+    @staticmethod
+    def world_features_to_raw(*args, **kwargs):
+        raise NotImplementedError(_LATER_EXTRACT)
 
     @staticmethod
     def gen_data(*args, **kwargs):

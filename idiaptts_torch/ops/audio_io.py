@@ -1,11 +1,12 @@
 """Host-side audio I/O: the port's copy of what the synthesiser needs from
 ``idiaptts_tpu/ops/audio_io.py`` (WAV read and write through scipy,
-PCM conversion).  numpy and scipy only."""
+PCM conversion, polyphase resampling).  numpy and scipy only."""
 
 import os
 
 import numpy as np
 import scipy.io.wavfile
+import scipy.signal
 
 
 def get_raw(audio_name, preemphasis=0.0):
@@ -50,3 +51,12 @@ def raw_to_file(file_path, raw, fs, file_format="wav"):
 def apply_preemphasis(raw, coefficient=0.97):
     return np.append(raw[0], raw[1:] - coefficient * raw[:-1]).astype(
         np.float32)
+
+
+def resample(raw, fs_in, fs_out):
+    """Polyphase resampling (librosa.resample replacement)."""
+    if fs_in == fs_out:
+        return np.asarray(raw, dtype=np.float32)
+    g = np.gcd(int(fs_in), int(fs_out))
+    up, down = int(fs_out) // g, int(fs_in) // g
+    return scipy.signal.resample_poly(raw, up, down).astype(np.float32)

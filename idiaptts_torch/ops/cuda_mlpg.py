@@ -1,9 +1,12 @@
-"""MLPG banded substitution: the CUDA kernel ``csrc/banded_solve.cu`` and
-its plain PyTorch version.
+"""MLPG banded solves: the CUDA kernels ``csrc/banded_solve.cu`` and
+``csrc/mlpg_oneshot.cu`` and their plain PyTorch versions.
 
-Replaces ``idiaptts_tpu/ops/pallas_mlpg.py:solve_banded_pallas`` (kernel
-``_solve_kernel``).  The one-shot factor-and-solve kernel ``mlpg_pallas``
-(``_mlpg_kernel``) is not ported yet.
+- :func:`solve_banded` replaces ``idiaptts_tpu/ops/pallas_mlpg.py:
+  solve_banded_pallas`` (kernel ``_solve_kernel``): both substitutions
+  with cached Cholesky factors (the batch path, ``mlpg_solve``).
+- :func:`mlpg_oneshot` replaces ``mlpg_pallas``'s body (kernel
+  ``_mlpg_kernel``): the banded Cholesky and both substitutions in one
+  launch, for one utterance's system (``MLPG.generation``).
 """
 
 import ctypes
@@ -15,6 +18,31 @@ from idiaptts_torch.ops import dispatch
 SOLVE = dispatch.Kernel(
     "banded_solve", "idt_banded_solve",
     [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int])
+ONESHOT = dispatch.Kernel(
+    "mlpg_oneshot", "idt_mlpg_oneshot",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int])
+
+
+def cholesky_banded_plain(a0, a1, a2):
+    """Bandwidth-2 banded Cholesky (the role of ``_cholesky_banded_scan``):
+    a0/a1/a2 (T, L) lower-banded SPD rows -> l0, l1, l2 (T, L) with
+    L[t, t] = l0[t], L[t+1, t] = l1[t], L[t+2, t] = l2[t].  Zero carries
+    before row 0."""
+    T = a0.shape[0]
+    l0 = torch.empty_like(a0)
+    l1 = torch.empty_like(a0)
+    l2 = torch.empty_like(a0)
+    zero = torch.zeros_like(a0[0])
+    l1_pm1, l2_pm1, l2_pm2 = zero, zero, zero
+    for t in range(T):
+        l0t = torch.sqrt(torch.clamp(a0[t] - l1_pm1 ** 2 - l2_pm2 ** 2,
+                                     min=1e-20))
+        l1t = (a1[t] - l1_pm1 * l2_pm1) / l0t
+        l2t = a2[t] / l0t
+        l0[t], l1[t], l2[t] = l0t, l1t, l2t
+        l2_pm2 = l2_pm1
+        l1_pm1, l2_pm1 = l1t, l2t
+    return l0, l1, l2
 
 
 def solve_banded_plain(b, l0, l1, l2):
@@ -57,4 +85,30 @@ def solve_banded(b, l0, l1, l2):
     x = torch.empty_like(b)
     SOLVE(b.device, b.data_ptr(), l0.data_ptr(), l1.data_ptr(),
           l2.data_ptr(), y.data_ptr(), x.data_ptr(), T, L)
+    return x
+
+
+def mlpg_oneshot_plain(b, ab0, ab1, ab2):
+    """Plain PyTorch one-shot solve: :func:`cholesky_banded_plain` of the
+    banded system, then :func:`solve_banded_plain`."""
+    return solve_banded_plain(b, *cholesky_banded_plain(ab0, ab1, ab2))
+
+
+def mlpg_oneshot(b, ab0, ab1, ab2):
+    """Solve (L L^T) x = b where L is the banded Cholesky factor of the
+    lower-banded SPD rows (ab0, ab1, ab2).  Every argument is (T, L)
+    float32, lanes independent.  Returns (T, L) float32.
+
+    CPU tensors take :func:`mlpg_oneshot_plain`; CUDA tensors launch the
+    hand kernel, one thread per lane, with a (4, T, L) scratch for the
+    factor rows and y."""
+    if not dispatch.use_kernel(b, ab0, ab1, ab2):
+        return mlpg_oneshot_plain(b, ab0, ab1, ab2)
+    T, L = b.shape
+    for name, t in (("b", b), ("ab0", ab0), ("ab1", ab1), ("ab2", ab2)):
+        dispatch.check(t, name, torch.float32, (T, L))
+    scratch = torch.empty((4, T, L), dtype=torch.float32, device=b.device)
+    x = torch.empty_like(b)
+    ONESHOT(b.device, b.data_ptr(), ab0.data_ptr(), ab1.data_ptr(),
+            ab2.data_ptr(), scratch.data_ptr(), x.data_ptr(), T, L)
     return x

@@ -1,6 +1,5 @@
-"""ModularTrainer, training half: the port of
-``idiaptts_tpu/train/trainer.py``'s experiment lifecycle up to training
-and testing.
+"""ModularTrainer: the port of ``idiaptts_tpu/train/trainer.py``'s
+experiment lifecycle.
 
 Id-list splitting, datareader and dataset setup, the init/checkpoint
 policy, the epoch loop with validation, schedulers, best-model
@@ -9,12 +8,20 @@ checkpoint save/load.  Batches are collated with numpy on a background
 thread while the card trains on the previous one; the model handler
 moves each batch to its device.
 
-Not ported yet: ``forward``, ``synth``, ``copy_synth``, ``gen_waveform``,
-``benchmark``/``compute_score`` and the figure front doors (they wait for
-the synthesiser and metrics modules, ROADMAP.md queue 1 item 9), the
-windowing dataset, TensorBoard logging and the profiler hook.
+Evaluation and synthesis: ``forward``, ``benchmark`` and ``synth`` run
+batched inference on the handler's device (``_forward_batched``), cut
+each output to its utterance's length and post-process it through its
+reader (``post_processing_mapping``; for WORLD features that is MLPG on
+the reader's device), then hand the results to the task trainer's
+``compute_score`` or ``gen_waveform``.  ``copy_synth`` synthesises from
+the readers' original features.
+
+Not ported yet: the figure front doors (``gen_figure``, which needs the
+plotter, ROADMAP.md queue 1 item 12), the windowing dataset (item 11),
+TensorBoard logging and the profiler hook.
 """
 
+import copy
 import logging
 import math
 import os
@@ -25,14 +32,15 @@ import time
 
 import numpy as np
 
-from idiaptts_torch.data.dataset import DatareadersDataset, collate_batch
+from idiaptts_torch.data.dataset import (DatareadersDataset,
+                                         batch_decollate, collate_batch)
 from idiaptts_torch.hparams import ExtendedHParams
 from idiaptts_torch.train.handler import ModularModelHandler
 
 logger = logging.getLogger(__name__)
 
-_LATER = ("is not ported yet; ROADMAP.md queue 1 item 9 (serving front "
-          "door: synthesiser and metrics) ports it")
+_LATER_FIGURE = ("gen_figure is not ported yet; ROADMAP.md queue 1 item 12 "
+                 "(utils/plotter.py) ports it")
 
 
 class ModularTrainer:
@@ -352,15 +360,228 @@ class ModularTrainer:
     def create_hparams(hparams_string=None, verbose=False):
         return ExtendedHParams.create_hparams(hparams_string, verbose)
 
-    # -- fronts that wait for later slices ---------------------------------
+    # -- evaluation and synthesis front doors --------------------------------
     def forward(self, hparams, id_list, input_only=True):
-        raise NotImplementedError("ModularTrainer.forward " + _LATER)
+        """Batched inference -> {id: post-processed output dict}.  With
+        ``input_only`` the dataset is built from the model-input readers
+        alone, so utterances without target features can be synthesised.
+        ``id_list`` accepts a list/tuple of ids, a single id, or a
+        file-id-list path."""
+        return self._forward_batched(
+            hparams, self._input_to_str_list(id_list),
+            hparams.get("batch_size_val", 48), input_only=input_only)
+
+    def _model_input_names(self):
+        names = set()
+
+        def collect(cfg):
+            if cfg is None:
+                return
+            # all_input_names covers side inputs too.
+            getter = getattr(cfg, "all_input_names", None)
+            for name in (getter() if callable(getter)
+                         else (getattr(cfg, "input_names", None) or ())):
+                names.add(name)
+            for sub in getattr(cfg, "module_configs", None) or []:
+                collect(sub)
+
+        collect(self.model_handler.model_config)
+        return names
+
+    def _forward_batched(self, hparams, id_list, batch_size,
+                         post_process=True, input_only=False):
+        readers = list(self.datareaders.values())
+        if input_only:
+            wanted = self._model_input_names()
+            filtered = [r for r in readers
+                        if r.name in wanted
+                        or any(n in wanted for n in r.output_names)]
+            if filtered:
+                readers = [_inference_clone(r) for r in filtered]
+            dataset = DatareadersDataset(id_list, readers,
+                                         random_select=False)
+        else:
+            # Full-length samples: benchmark compares frame by frame
+            # against the full-length originals, so no training crops.
+            dataset = DatareadersDataset(
+                id_list,
+                [_inference_clone(r) if getattr(r, "max_frames", None)
+                 else r for r in readers],
+                random_select=False)
+        results = {}
+        for start in range(0, len(id_list), batch_size):
+            chunk = list(id_list)[start:start + batch_size]
+            batch = collate_batch([dataset.get_id_name(i)[0] for i in chunk])
+            out = self.model_handler.inference(batch)
+            merged = dict(batch)
+            merged.update({k: v for k, v in out.items()
+                           if isinstance(v, np.ndarray)})
+            # Model outputs take the lengths of the batch feature with the
+            # same padded time axis, so multi-rate batches trim right.
+            first_len_key = next(iter(batch["_lengths"]))
+            lengths = {}
+            for k, v in merged.items():
+                if k.startswith("_"):
+                    continue
+                if k in batch["_lengths"]:
+                    lengths[k] = batch["_lengths"][k]
+                    continue
+                time_dim = v.shape[1] if getattr(v, "ndim", 0) > 1 else None
+                match = next(
+                    (lk for lk in batch["_lengths"]
+                     if lk in batch and getattr(batch[lk], "ndim", 0) > 1
+                     and batch[lk].shape[1] == time_dim), None)
+                lengths[k] = batch["_lengths"][match or first_len_key]
+            for id_name, sample in zip(chunk, batch_decollate(
+                    merged, lengths=lengths)):
+                if post_process:
+                    sample = self._postprocess_sample(sample)
+                results[id_name] = sample
+        return results
+
+    def _postprocess_sample(self, sample):
+        """Map output names through their readers' post-processing
+        (``post_processing_mapping``: output name -> reader name)."""
+        mapping = getattr(self, "post_processing_mapping", None)
+        if not mapping:
+            return sample
+        out = dict(sample)
+        for output_name, reader_name in mapping.items():
+            if output_name in out and reader_name in self.datareaders:
+                out[output_name] = self.datareaders[
+                    reader_name].postprocess_sample(out[output_name])
+        return out
 
     def synth(self, hparams, id_list):
-        raise NotImplementedError("ModularTrainer.synth " + _LATER)
+        """Predict features and synthesise waveforms."""
+        results = self._forward_batched(
+            hparams, self._input_to_str_list(id_list),
+            hparams.get("batch_size_synth", 12), input_only=True)
+        return self.gen_waveform(hparams, results)
+
+    def copy_synth(self, hparams, id_list):
+        """Synthesise from the original features: each reader's sample is
+        post-processed by its reader and exposed under the prediction
+        keys of ``post_processing_mapping``, so ``gen_waveform`` sees the
+        sample a forward pass would give."""
+        mapping = getattr(self, "post_processing_mapping", {}) or {}
+        dataset = DatareadersDataset(
+            id_list, [_inference_clone(r)
+                      for r in self.datareaders.values()],
+            random_select=False)
+        results = {}
+        for id_name in id_list:
+            sample, _ = dataset.get_id_name(id_name)
+            out = dict(sample)
+            for pred_key, reader_name in mapping.items():
+                reader = self.datareaders.get(reader_name)
+                if reader is None:
+                    continue
+                source = next((n for n in reader.output_names
+                               if n in sample), None)
+                if source is not None:
+                    out[pred_key] = reader.postprocess_sample(sample[source])
+            results[id_name] = out
+        return self.gen_waveform(hparams, results)
+
+    def gen_waveform(self, hparams, results):
+        """Vocoder dispatch: implemented by the task trainer."""
+        raise NotImplementedError(
+            "gen_waveform must be implemented by the task trainer.")
 
     def benchmark(self, hparams, id_list=None):
-        raise NotImplementedError("ModularTrainer.benchmark " + _LATER)
+        """Scores of the post-processed predictions (the task trainer's
+        ``compute_score``); no ids: the test split."""
+        ids = self._input_to_str_list(id_list) if id_list \
+            else self.id_list_test
+        results = self._forward_batched(
+            hparams, ids, hparams.get("batch_size_benchmark", 48))
+        return self.compute_score(hparams, results)
+
+    def compute_score(self, hparams, results):
+        raise NotImplementedError(
+            "compute_score must be implemented by the task trainer.")
+
+    def gen_figure(self, hparams, id_list):
+        raise NotImplementedError(_LATER_FIGURE)
+
+    @staticmethod
+    def id_list_to_str(id_list):
+        return " ".join(
+            os.path.join(os.path.split(os.path.dirname(i))[-1],
+                         os.path.splitext(os.path.basename(i))[0])
+            for i in id_list)
+
+    @staticmethod
+    def _input_to_str_list(input):
+        """A file-id-list path, a single id string, or a list/tuple of
+        ids -> list of id strings."""
+        if isinstance(input, str):
+            try:
+                with open(input) as f:
+                    return [s.strip(" \t\n\r") for s in f.readlines()
+                            if s.strip(" \t\n\r")]
+            except IOError:
+                return [input]
+        if isinstance(input, (list, tuple)):
+            return [str(s) for s in input]
+        raise ValueError("Unknown input {} of type {}.".format(
+            input, type(input)))
+
+    @staticmethod
+    def split_batch(data, seq_lengths, batch_first=True):
+        """Split every batched array in ``data`` into per-utterance arrays
+        cut to their lengths."""
+        return {k: ModularTrainer._split_return_values(
+                    v, seq_lengths[k], batch_first=batch_first)
+                for k, v in data.items()}
+
+    @classmethod
+    def _split_return_values(cls, input_values, seq_length_output,
+                             permutation=None, batch_first=False):
+        """Batched ndarray (or nested tuple of them) -> per-utterance
+        list, cut to ``seq_length_output`` and optionally unsorted by
+        ``permutation``.  collate_batch pads even a batch of one to its
+        bucket, so every batch size is cut."""
+        if input_values is None:
+            return None
+        if isinstance(input_values, tuple):
+            if all(v is None for v in input_values):
+                return input_values
+            parts = tuple(
+                cls._split_return_values(x, seq_length_output,
+                                         permutation, batch_first)
+                for x in input_values)
+            batch_size = len([p for p in parts if isinstance(p, list)][0])
+            out = []
+            for index in range(batch_size):
+                entry = []
+                for element in parts:
+                    if element is None or (
+                            isinstance(element, tuple)
+                            and all(v is None for v in element)):
+                        entry.append(element)
+                    else:
+                        entry.append(element[index])
+                out.append(tuple(entry))
+            return tuple(out)
+        if not isinstance(input_values, np.ndarray):
+            raise TypeError(
+                "Expected numpy tensor but input is of type {}.".format(
+                    type(input_values)))
+        axis = 0 if batch_first else 1
+        values = [np.squeeze(v, axis=axis) for v in np.split(
+            input_values, input_values.shape[axis], axis=axis)]
+        if seq_length_output is not None \
+                and np.ndim(seq_length_output) > 0 \
+                and len(seq_length_output) >= 1:
+            values = [v[:int(n)] for v, n in zip(values, seq_length_output)]
+        if permutation is not None:
+            unsorted = list(values)
+            for org_index, current_index in enumerate(permutation):
+                unsorted[current_index] = values[org_index]
+            values = unsorted
+        return values
 
     # -- loss records and checkpoints ---------------------------------------
     def record_train_loss(self, loss_dict, epoch):
@@ -415,3 +636,13 @@ class ModularTrainer:
     def get_dataset(self, split="train"):
         return {"train": self.dataset_train, "val": self.dataset_val,
                 "test": self.dataset_test}[split]
+
+
+def _inference_clone(reader):
+    """Shallow copy of a reader for inference datasets: ``match_length``
+    cleared (partners may be absent) and ``max_frames`` cleared (training
+    crops must not cut synthesis or benchmark inputs)."""
+    clone = copy.copy(reader)
+    clone.match_length = None
+    clone.max_frames = None
+    return clone

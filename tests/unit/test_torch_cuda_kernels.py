@@ -263,3 +263,55 @@ def test_wavenet_kernel_refuses_unsupported_width(dev):
     with pytest.raises(ValueError, match="built for"):
         cuda_wavenet.sample(w, torch.zeros(3, 1, 8, device=dev),
                             temperature=0.0)
+
+
+def _mlpg_system(dev, T, L, seed=0):
+    """A one-shot MLPG system as ``mlpg_torch`` assembles it: seeded
+    window means and variances (1e11 delta variances on the boundary
+    frames), assembled on the card."""
+    from idiaptts_torch.ops import mlpg
+    rs = np.random.RandomState(seed)
+    var = mlpg._boundary_variances(
+        (rs.rand(3 * L) * 0.5 + 0.05).astype(np.float32), L, T).to(dev)
+    feats = torch.from_numpy(rs.randn(T, 3, L).astype(np.float32)).to(dev)
+    bands, b = mlpg._banded_system(feats, var)
+    return [b.contiguous()] + [a.contiguous() for a in bands]
+
+
+# K1 against its plain version; the relative tolerance is the one
+# chip_smoke.py holds it to.
+MLPG_ONESHOT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("L", [1, 20, 60])
+@pytest.mark.parametrize("T", [1, 2, 3, 512])
+def test_mlpg_oneshot_kernel_matches_plain(dev, T, L):
+    args = _mlpg_system(dev, T, L)
+    before = cuda_mlpg.ONESHOT.launches
+    x = cuda_mlpg.mlpg_oneshot(*args)
+    torch.cuda.synchronize()
+    assert cuda_mlpg.ONESHOT.launches == before + 1
+    ref = cuda_mlpg.mlpg_oneshot_plain(*args)
+    # The same float32 operations; nvcc contracts multiply-subtract into
+    # FMAs, and the system's conditioning amplifies those few ulps.
+    torch.testing.assert_close(
+        x, ref, rtol=0, atol=MLPG_ONESHOT_TOL * ref.abs().max().item())
+
+
+def test_mlpg_generation_launches_the_oneshot_kernel(dev):
+    from idiaptts_torch.ops.mlpg import MLPG
+    rs = np.random.RandomState(1)
+    feats = rs.randn(300, 60).astype(np.float32)
+    cov = np.diag((rs.rand(60) + 0.1).astype(np.float32))
+    before = cuda_mlpg.ONESHOT.launches
+    out = MLPG().generation(feats, cov, 20, device=dev)
+    assert cuda_mlpg.ONESHOT.launches == before + 1
+    ref = MLPG().generation(feats, cov, 20, device="cpu")
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=MLPG_ONESHOT_TOL * np.abs(ref).max())
+
+
+def test_mlpg_oneshot_refuses_wrong_dtype(dev):
+    args = [a.double() for a in _mlpg_system(dev, 8, 4)]
+    with pytest.raises(ValueError, match="float32"):
+        cuda_mlpg.mlpg_oneshot(*args)

@@ -39,6 +39,7 @@ MODULES = [
     "idiaptts_torch.synth.pipeline",
     "idiaptts_torch.synth.server",
     "idiaptts_torch.synth.synthesiser",
+    "idiaptts_torch.synth.metrics",
     "idiaptts_torch.data.normalisation",
     "idiaptts_torch.data.reader",
     "idiaptts_torch.data.dataset",
