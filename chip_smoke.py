@@ -16,7 +16,10 @@ other error raises at once):
 3. The serving kernels against their plain PyTorch versions on the card
    at the serving path's shapes (T = 512 frames; fixture batch B = 6 and
    the 8x capacity batch B = 48), with CUDA-event times for both and for
-   the PyTorch library call that computes the same function.
+   the PyTorch library call that computes the same function (K2: the
+   dense ``torch.cholesky_solve``; the projection: a bf16 ``torch.bmm``,
+   with the kernel's TFLOP/s and share of its bound).  The projection
+   also at ragged shapes (``PROJ_RAGGED``).
 4. The serving path at full width: the Interspeech'18 acoustic model
    ``RNNDYN-2_RELU_1024-3_BiLSTM_512-1_FC_67`` (141 question inputs,
    random weights from a seeded ``torch.Generator``; the repository holds
@@ -31,8 +34,9 @@ other error raises at once):
    benchmark's shapes (T = 1024, D = 1024, F = 512, B = 8 and 32): the
    training recurrence's h bit-identical to the inference kernel's, its
    gates and cells, the reverse-time backward's dz (float32 and bf16
-   residuals), and one layer's autograd gradients against autograd
-   through the plain layer; CUDA-event times beside cuDNN's LSTM.
+   residuals), the projection, and one layer's autograd gradients
+   against autograd through the plain layer; CUDA-event times beside
+   cuDNN's LSTM (the projection: beside ``torch.bmm``).
 6. The training path at full width: ``AcousticModelTrainer`` on the
    fixture corpus on ``cuda`` (3 epochs, batch 2, 25% validation), with
    the launch counters reset just before ``train`` and read just after;
@@ -112,6 +116,12 @@ D_IN, F_HIDDEN = 1024, 512       # BiLSTM input and hidden width
 # Recurrence kernel vs plain recurrence, absolute on h in (-1, 1);
 # measured 8.7e-4 (B=6) and 1.1e-3 (B=48) on an H100.
 REC_TOL = 5e-3
+# Projection shapes (T, B, D, F) that leave the kernel's 128 x 256 x 64
+# tiling ragged everywhere: Bp = 7 (tiles of 128 steps of one row, 37 of
+# them filled), K = 1000 (not a multiple of the 64-deep stage), N = 384
+# (a half-empty column tile); and D = 409, the question width, padded
+# along K to 416.
+PROJ_RAGGED = ((37, 7, 1000, 96), (50, 6, 409, 128))
 
 # Training benchmark shapes (bench_training.py:35-114): bucket T, batches,
 # question width; the full-width model's output width.
@@ -343,9 +353,88 @@ def bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x), e - 8)
 
 
+def projection_inputs(torch, gen, T, B, D, F):
+    """Seeded projection inputs on the generator's device: xin (T, 2B, D)
+    bf16, Wx (2, D, 4F) bf16 and the bias (2, 4F) float32."""
+    device = gen.device
+    xin = torch.randn(T, 2 * B, D, generator=gen,
+                      device=device).to(torch.bfloat16)
+    wx = (torch.randn(2, D, 4 * F, generator=gen, device=device)
+          / np.sqrt(D)).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(2, 4 * F, generator=gen, device=device)
+    return xin, wx, bias
+
+
+def projection_entry(torch, xin, wx, bias, reps):
+    """The projection kernel (K6/K7's first half) against its plain
+    version on the same inputs, then CUDA-event times of the kernel, the
+    plain version and the library yardstick (one bf16 ``torch.bmm`` over
+    the directions; it writes bf16 with no bias, half the kernel's
+    output bytes).  Returns the measurements."""
+    from idiaptts_torch.ops import cuda_lstm
+    T, R, D = xin.shape
+    G = wx.shape[-1]
+    B = R // 2
+    shape = "T={},R={},D={},N={}".format(T, R, D, G)
+    xp_k = cuda_lstm.bilstm_projection_tmajor(xin, wx, bias)
+    xp_p = cuda_lstm.projection_tmajor_plain(xin, wx, bias)
+    err = (xp_k - xp_p).abs().max().item()
+    # Both accumulate in float32 and round to bf16; summation order
+    # differs, so a product near a rounding midpoint can land on the
+    # neighbouring bf16 value.  With a zero bias the outputs are the bf16
+    # products themselves: at most one bf16 ulp apart (plus 1e-5 for sums
+    # that cancel to near zero, where float32 summation noise exceeds the
+    # ulp), and rarely.
+    zero = torch.zeros_like(bias)
+    p_k = cuda_lstm.bilstm_projection_tmajor(xin, wx, zero)
+    p_p = cuda_lstm.projection_tmajor_plain(xin, wx, zero)
+    d_p = (p_k - p_p).abs()
+    excess = (d_p - bf16_ulp(torch, torch.maximum(p_k.abs(), p_p.abs()))
+              - 1e-5).max().item()
+    flips = (d_p > 0).float().mean().item()
+    bias_rows = bias[None, :, None, :].expand(T, 2, B, G).reshape(T, R, G)
+    log("  bilstm_proj        {}: max|d| = {:.3e}, {:.4%} of products one "
+        "bf16 ulp apart".format(shape, err, flips))
+    if excess > 0 or flips > 1e-2:
+        fail("bilstm_proj products differ by more than rare one-ulp bf16 "
+             "rounding flips ({})".format(shape))
+    # The bias is one float32 add, the same in both.
+    if not torch.equal(xp_k, p_k + bias_rows):
+        fail("bilstm_proj bias add differs ({})".format(shape))
+    del xp_k, xp_p, p_k, p_p, d_p, bias_rows
+    x_dir = xin.reshape(T, 2, B, D).transpose(0, 1).reshape(
+        2, T * B, D).contiguous()
+    bound_ms, bound_by = lstm_bound(T, R, D, G // 4, "proj")
+    ms = cuda_ms(torch, lambda: cuda_lstm.bilstm_projection_tmajor(
+        xin, wx, bias), reps)
+    r = dict(shape=shape, max_abs_err=err, ms=ms, bound_ms=bound_ms,
+             bound_by=bound_by, tflops_per_s=2.0 * T * R * D * G / ms / 1e9,
+             bound_share=bound_ms / ms,
+             library_ms=cuda_ms(torch, lambda: torch.bmm(x_dir, wx), reps),
+             plain_ms=cuda_ms(torch, lambda: cuda_lstm
+                              .projection_tmajor_plain(xin, wx, bias), reps))
+    log("  bilstm_proj        {}: kernel {:.4f} ms, {:.1f} TFLOP/s, {:.1%} "
+        "of its bound {:.4f} ms ({}) | bmm {:.4f} ms | plain {:.4f} ms"
+        .format(shape, ms, r["tflops_per_s"], r["bound_share"], bound_ms,
+                bound_by, r["library_ms"], r["plain_ms"]))
+    return r
+
+
+def dense_factor(torch, l0, l1, l2):
+    """The (L, T, T) lower-triangular MLPG factor of the bands:
+    F[t, t] = l0[t], F[t, t-1] = l1[t-1], F[t, t-2] = l2[t-2]."""
+    T = l0.shape[0]
+    f = torch.diag_embed(l0.t())
+    for k, band in ((1, l1), (2, l2)):
+        if T > k:
+            f = f + torch.diag_embed(band[:T - k].t(), offset=-k)
+    return f
+
+
 def kernel_checks(torch, pipeline, device):
-    """Each kernel against its plain version at the serving shapes.
-    Returns {kernel name: {B: measurements}}."""
+    """Each kernel against its plain version at the serving shapes, and
+    the projection at PROJ_RAGGED.  Returns {kernel name: {B or shape
+    label: measurements}}."""
     from idiaptts_torch.ops import cuda_lstm, cuda_mlpg
     gen = torch.Generator(device=device).manual_seed(1234)
     T, F, D = T_BUCKET, F_HIDDEN, D_IN
@@ -368,64 +457,38 @@ def kernel_checks(torch, pipeline, device):
         # conditioning; measured 2.5e-5 and 3.8e-5 on an H100).
         _check("banded_solve", err, 1e-5 * scale,
                "T={} L={}".format(T, L))
+        # Library yardstick: torch.cholesky_solve on the dense (L, T, T)
+        # factor, O(T^2) per lane.  Another algorithm (blocked triangular
+        # solves) in float32: within 1e-3 of the largest |x|.
+        factor = dense_factor(torch, l0, l1, l2)
+        rhs = b.t().unsqueeze(-1).contiguous()
+        lib_err = (torch.cholesky_solve(rhs, factor).squeeze(-1).t()
+                   - x_k).abs().max().item()
+        _check("banded_solve lib", lib_err, 1e-3 * scale,
+               "cholesky_solve vs kernel, L={}".format(L))
         # Per element: forward and back substitution, 5 float32
         # operations each; b and three factor rows in, x out.
         bound_ms, bound_by = bound(10.0 * T * L, PEAK_F32_FLOPS,
                                    5 * T * L * 4)
         results["banded_solve"][B] = dict(
             shape="T={},L={}".format(T, L), max_abs_err=err,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=cuda_ms(torch, lambda: torch.cholesky_solve(
+                rhs, factor), 5),
+            library="torch.cholesky_solve on the dense (L, T, T) factor",
+            library_abs_err=lib_err,
             ms=cuda_ms(torch, lambda: cuda_mlpg.solve_banded(
                 b, l0, l1, l2), 20),
             plain_ms=cuda_ms(torch, lambda: cuda_mlpg.solve_banded_plain(
                 b, l0, l1, l2), 2))
+        del factor, rhs
 
         # K6, projection half: bf16(x . Wx) + b.
-        xin = torch.randn(T, 2 * B, D, generator=gen,
-                          device=device).to(torch.bfloat16)
-        wx = (torch.randn(2, D, 4 * F, generator=gen, device=device)
-              / np.sqrt(D)).to(torch.bfloat16)
-        bias = 0.1 * torch.randn(2, 4 * F, generator=gen, device=device)
-        xp_k = cuda_lstm.bilstm_projection_tmajor(xin, wx, bias)
+        xin, wx, bias = projection_inputs(torch, gen, T, B, D, F)
+        results["bilstm_proj"][B] = projection_entry(torch, xin, wx, bias,
+                                                     20)
+        proj_err = results["bilstm_proj"][B]["max_abs_err"]
         xp_p = cuda_lstm.projection_tmajor_plain(xin, wx, bias)
-        diff = (xp_k - xp_p).abs()
-        # Both accumulate in float32 and round to bf16; summation order
-        # differs, so a product near a rounding midpoint can land on the
-        # neighbouring bf16 value.  With a zero bias the outputs are the
-        # bf16 products themselves: at most one bf16 ulp apart (plus 1e-5
-        # for sums that cancel to near zero, where float32 summation
-        # noise exceeds the ulp), and rarely.
-        zero = torch.zeros_like(bias)
-        p_k = cuda_lstm.bilstm_projection_tmajor(xin, wx, zero)
-        p_p = cuda_lstm.projection_tmajor_plain(xin, wx, zero)
-        d_p = (p_k - p_p).abs()
-        excess = (d_p - bf16_ulp(torch, torch.maximum(p_k.abs(), p_p.abs()))
-                  - 1e-5).max().item()
-        flips = (d_p > 0).float().mean().item()
-        bias_rows = bias[None, :, None, :].expand(T, 2, B, 4 * F).reshape(
-            T, 2 * B, 4 * F)
-        log("  bilstm_proj        T={} R={} D={} N={}: max|d| = {:.3e}, "
-            "{:.4%} of products one bf16 ulp apart".format(
-                T, 2 * B, D, 4 * F, diff.max().item(), flips))
-        if excess > 0 or flips > 1e-2:
-            fail("bilstm_proj products differ by more than rare one-ulp "
-                 "bf16 rounding flips (B={})".format(B))
-        # The bias is one float32 add, the same in both.
-        if not torch.equal(xp_k, p_k + bias_rows):
-            fail("bilstm_proj bias add differs (B={})".format(B))
-        # Library yardstick: one bf16 batched GEMM over the directions.
-        x_dir = xin.reshape(T, 2, B, D).transpose(0, 1).reshape(
-            2, T * B, D).contiguous()
-        results["bilstm_proj"][B] = dict(
-            shape="T={},R={},D={},N={}".format(T, 2 * B, D, 4 * F),
-            max_abs_err=diff.max().item(),
-            library_ms=cuda_ms(torch, lambda: torch.bmm(x_dir, wx), 20),
-            **dict(zip(("bound_ms", "bound_by"),
-                       lstm_bound(T, 2 * B, D, F, "proj"))),
-            ms=cuda_ms(torch, lambda: cuda_lstm.bilstm_projection_tmajor(
-                xin, wx, bias), 20),
-            plain_ms=cuda_ms(torch, lambda: cuda_lstm
-                             .projection_tmajor_plain(xin, wx, bias), 20))
 
         # K3: the recurrence over the projections just made.
         wh_cat = (torch.randn(2 * F, 4 * F, generator=gen, device=device)
@@ -459,7 +522,7 @@ def kernel_checks(torch, pipeline, device):
         lay_err = (cuda_lstm.bilstm_layer_tmajor(xin, wx, wh_cat, bias)
                    - cuda_lstm.scan_layer_tmajor(xin, wx, wh_cat, bias)
                    ).abs().max().item()
-        _check("bilstm_layer", lay_err, REC_TOL + diff.max().item(),
+        _check("bilstm_layer", lay_err, REC_TOL + proj_err,
                "T={} R={} D={} F={}".format(T, 2 * B, D, F))
         results["bilstm_proj"][B]["layer_max_abs_err"] = lay_err
         results["bilstm_proj"][B]["layer_ms"] = cuda_ms(
@@ -468,11 +531,18 @@ def kernel_checks(torch, pipeline, device):
         results["bilstm_proj"][B]["layer_plain_ms"] = cuda_ms(
             torch, lambda: cuda_lstm.scan_layer_tmajor(
                 xin, wx, wh_cat, bias), 1)
+
+    # The projection at shapes that leave every edge of its tiling ragged.
+    for T_r, B_r, D_r, F_r in PROJ_RAGGED:
+        results["bilstm_proj"]["T={},B={},D={},F={}".format(
+            T_r, B_r, D_r, F_r)] = projection_entry(
+                torch, *projection_inputs(torch, gen, T_r, B_r, D_r, F_r), 5)
     for name, by_b in results.items():
         for B, r in by_b.items():
-            log("  {:<18s} B={:<3d} {:<28s} kernel {:9.4f} ms | plain "
-                "{:9.4f} ms".format(name, B, r["shape"], r["ms"],
-                                    r["plain_ms"]))
+            log("  {:<18s} {:<6s} {:<28s} kernel {:9.4f} ms | plain "
+                "{:9.4f} ms".format(
+                    name, "B={}".format(B) if isinstance(B, int)
+                    else "ragged", r["shape"], r["ms"], r["plain_ms"]))
     return results
 
 
@@ -728,17 +798,7 @@ def train_kernel_checks(torch, device, T=TRAIN_T, batches=TRAIN_BATCHES,
         del y_seq, x_seq
 
         # K7 = the projection kernel at these shapes, then K4.
-        x_dir = xin.reshape(T, 2, B, D).transpose(0, 1).reshape(
-            2, T * B, D).contiguous()
-        out["bilstm_proj"][B] = dict(
-            shape="T={},R={},D={},N={}".format(T, R, D, G),
-            ms=cuda_ms(torch, lambda: cuda_lstm.bilstm_projection_tmajor(
-                xin, wx, bias), 10),
-            plain_ms=cuda_ms(torch, lambda: cuda_lstm
-                             .projection_tmajor_plain(xin, wx, bias), 10),
-            library_ms=cuda_ms(torch, lambda: torch.bmm(x_dir, wx), 10),
-            **dict(zip(("bound_ms", "bound_by"),
-                       lstm_bound(T, R, D, F, "proj"))))
+        out["bilstm_proj"][B] = projection_entry(torch, xin, wx, bias, 10)
 
         if B == batches[0]:
             layer_gradients(torch, xin, wx, wh, bias, gen)
@@ -1222,13 +1282,8 @@ def mlpg_system(torch, device, T, L, seed):
 
 def dense_spd(torch, ab0, ab1, ab2):
     """The (L, T, T) symmetric matrices of the lower-banded rows."""
-    T = ab0.shape[0]
-    a = torch.diag_embed(ab0.t())
-    for k, band in ((1, ab1), (2, ab2)):
-        if T > k:
-            off = torch.diag_embed(band[:T - k].t(), offset=-k)
-            a = a + off + off.transpose(1, 2)
-    return a
+    lower = dense_factor(torch, ab0, ab1, ab2)
+    return lower + lower.transpose(1, 2) - torch.diag_embed(ab0.t())
 
 
 def mlpg_kernel_checks(torch, device, shapes=MLPG_SHAPES, reps=20):
@@ -1753,6 +1808,8 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
                  "card": card, "second_batch": second}
         if name == "bilstm_proj":
             entry["train_shapes"] = tres[name]
+            entry["ragged_shapes"] = {k: v for k, v in kres[name].items()
+                                      if isinstance(k, str)}
             entry["also_replaces"] = "idiaptts_tpu/ops/pallas_lstm.py:742"
         if name == "bilstm_recurrence_train":
             entry["also_replaces"] = "idiaptts_tpu/ops/pallas_lstm.py:742"

@@ -193,8 +193,12 @@ def _gates_shape(x, name):
 
 def bilstm_projection_tmajor(xin_t, wx, b):
     """Input projection of one BiLSTM layer (the projection half of
-    ``_bilstm_layer_kernel``).  Same contract as
-    :func:`projection_tmajor_plain`; CUDA tensors launch the hand GEMM."""
+    ``_bilstm_layer_kernel`` and ``_bilstm_layer_kernel_train``).  Same
+    contract as :func:`projection_tmajor_plain`; CUDA tensors launch the
+    hand GEMM.  Its TMA loads need rows of a multiple of 16 bytes, so an
+    input width D that is not a multiple of 8 is padded with zeros along
+    K (xin and Wx alike), which leaves the product unchanged; 4F must be
+    a multiple of 8."""
     if not dispatch.use_kernel(xin_t, wx, b):
         return projection_tmajor_plain(xin_t, wx, b)
     T, R, D = xin_t.shape
@@ -207,9 +211,13 @@ def bilstm_projection_tmajor(xin_t, wx, b):
     dispatch.check(xin_t, "xin_t", torch.bfloat16, (T, R, D))
     dispatch.check(wx, "wx", torch.bfloat16, (2, D, G))
     dispatch.check(b, "b", torch.float32, (2, G))
+    pad = -D % 8
+    if pad:
+        xin_t = torch.nn.functional.pad(xin_t, (0, pad))
+        wx = torch.nn.functional.pad(wx, (0, 0, 0, pad))
     xp = torch.empty(T, R, G, dtype=torch.float32, device=xin_t.device)
     PROJECTION(xin_t.device, xin_t.data_ptr(), wx.data_ptr(), b.data_ptr(),
-               xp.data_ptr(), T, R // 2, D, G)
+               xp.data_ptr(), T, R // 2, D + pad, G)
     return xp
 
 

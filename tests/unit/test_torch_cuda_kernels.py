@@ -57,16 +57,32 @@ def _bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x), e - 8)
 
 
-@pytest.mark.parametrize("T,B,D,F", [(19, 2, 96, 128), (16, 8, 256, 128),
-                                     (64, 3, 1024, 512)])
+# The projection kernel's tile is 128 rows (BT steps of BR rows, BR a
+# divisor of Bp, or 128 rows of one step when Bp > 128) by 256 columns,
+# 64 deep a stage.  These shapes hit every edge: Bp from 1 to 200 (the
+# 128 rows as 1 x 128, 2 x 64, 8 x 16, 16 x 8 and 64 x 2 rows x steps;
+# Bp = 131 and 200 split into 128 rows and the rest), a partial last
+# step tile, N = 4F with F = 72 and
+# 96 (column tiles of 32 and 128 of 256 columns, whole TMA boxes past
+# N), K not a multiple of 64, and K = 409 (padded to 416 by the
+# wrapper).
+@pytest.mark.parametrize("T,B,D,F", [
+    (19, 2, 96, 128), (16, 8, 256, 128), (64, 3, 1024, 512),
+    (37, 1, 1000, 96), (37, 7, 1000, 96), (50, 6, 409, 128),
+    (9, 48, 1024, 72), (5, 64, 96, 512), (3, 128, 409, 96),
+    (33, 7, 1024, 512), (3, 200, 96, 128), (4, 131, 64, 128)])
 def test_projection_kernel_matches_plain(dev, T, B, D, F):
     g = _gen(dev, 1)
     xin = torch.randn(T, 2 * B, D, generator=g, device=dev).to(
         torch.bfloat16)
     wx = (torch.randn(2, D, 4 * F, generator=g, device=dev)
           / D ** 0.5).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(2, 4 * F, generator=g, device=dev)
     zero = torch.zeros(2, 4 * F, device=dev)
+    before = cuda_lstm.PROJECTION.launches
     out = cuda_lstm.bilstm_projection_tmajor(xin, wx, zero)
+    torch.cuda.synchronize()
+    assert cuda_lstm.PROJECTION.launches == before + 1
     ref = cuda_lstm.projection_tmajor_plain(xin, wx, zero)
     diff = (out - ref).abs()
     # bf16 products of float32 sums in another order: one bf16 ulp at
@@ -74,6 +90,11 @@ def test_projection_kernel_matches_plain(dev, T, B, D, F):
     assert torch.all(diff <= _bf16_ulp(torch.maximum(out.abs(), ref.abs()))
                      + 1e-5)
     assert (diff > 0).float().mean().item() < 1e-2
+    # The bias is one float32 add after the rounding.
+    rows_b = bias[None, :, None, :].expand(T, 2, B, 4 * F).reshape(
+        T, 2 * B, 4 * F)
+    assert torch.equal(cuda_lstm.bilstm_projection_tmajor(xin, wx, bias),
+                       out + rows_b)
 
 
 @pytest.mark.parametrize("T,B,F", [(37, 3, 128), (8, 1, 256), (96, 9, 512),
@@ -95,6 +116,16 @@ def test_recurrence_kernel_refuses_unsupported_width(dev):
     with pytest.raises(dispatch.KernelError):
         cuda_lstm.bilstm_recurrence_tmajor(xp, torch.zeros(192, 384,
                                                            device=dev))
+
+
+def test_projection_refuses_a_width_tma_cannot_stride(dev):
+    """4F must be a multiple of 8 (16-byte rows of Wx for TMA); the
+    wrapper pads only K."""
+    with pytest.raises(dispatch.KernelError):
+        cuda_lstm.bilstm_projection_tmajor(
+            torch.zeros(4, 2, 16, device=dev, dtype=torch.bfloat16),
+            torch.zeros(2, 16, 12, device=dev), torch.zeros(2, 12,
+                                                            device=dev))
 
 
 def test_kernels_refuse_wrong_dtype(dev):

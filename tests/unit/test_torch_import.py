@@ -51,6 +51,7 @@ MODULES = [
     "idiaptts_torch.train.trainer",
     "idiaptts_torch.train.acoustic",
     "chip_smoke",
+    "probe_bilstm_proj",
 ]
 
 _SCRIPT = r"""

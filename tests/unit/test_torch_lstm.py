@@ -75,7 +75,8 @@ def _bf16_ulp(x):
     return np.ldexp(1.0, e - 8)
 
 
-@pytest.mark.parametrize("B,T,D,F", [(2, 19, 96, 128), (8, 16, 256, 128)])
+@pytest.mark.parametrize("B,T,D,F", [(2, 19, 96, 128), (8, 16, 256, 128),
+                                     (3, 11, 409, 128)])
 def test_projection_rounds_like_jax(B, T, D, F):
     """bf16(x . Wx) + b: both sides accumulate in float32 and round to
     bf16, in another summation order, so a product at a rounding midpoint
@@ -100,7 +101,8 @@ def test_projection_rounds_like_jax(B, T, D, F):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("B,T,D,F", [(2, 19, 96, 128), (8, 16, 256, 128)])
+@pytest.mark.parametrize("B,T,D,F", [(2, 19, 96, 128), (8, 16, 256, 128),
+                                     (3, 11, 409, 128)])
 def test_layer_plain_matches_jax(B, T, D, F):
     jax_args, torch_args = _layer_inputs(B, T, D, F)
     ref_scan = np.asarray(pallas_lstm._scan_layer_tmajor(*jax_args))
