@@ -18,8 +18,10 @@ other error raises at once):
    the 8x capacity batch B = 48), with CUDA-event times for both and for
    the PyTorch library call that computes the same function (K2: the
    dense ``torch.cholesky_solve``; the projection: a bf16 ``torch.bmm``,
-   with the kernel's TFLOP/s and share of its bound).  The projection
-   also at ragged shapes (``PROJ_RAGGED``).
+   with the kernel's TFLOP/s and share of its bound; the recurrence:
+   cuDNN's LSTM, and its µs a step).  The projection also at ragged
+   shapes (``PROJ_RAGGED``); the recurrence also at the narrow width
+   F = 64 (``NARROW``, B = 6).
 4. The serving path at full width: the Interspeech'18 acoustic model
    ``RNNDYN-2_RELU_1024-3_BiLSTM_512-1_FC_67`` (141 question inputs,
    random weights from a seeded ``torch.Generator``; the repository holds
@@ -29,7 +31,8 @@ other error raises at once):
    just before and read just after, and every serving kernel must have
    launched.  The card's result is held against the port's CPU path on
    one utterance, then the slice is timed (label -> waveform xRT at
-   B = 6 and B = 48, and per-stage ms).
+   B = 6 and B = 48, per-stage ms, and the device split of one batch
+   from torch.profiler).
 5. The training kernels against their plain versions at the training
    benchmark's shapes (T = 1024, D = 1024, F = 512, B = 8 and 32): the
    training recurrence's h bit-identical to the inference kernel's, its
@@ -113,6 +116,9 @@ FS = 16000
 T_BUCKET = 512
 BATCHES = (6, 48)
 D_IN, F_HIDDEN = 1024, 512       # BiLSTM input and hidden width
+# The narrow BiLSTM (input, hidden) width that phase 3 also checks K3 at:
+# tests/integration/test_quality_pins.py's RNNDYN-2_RELU_128-1_BiLSTM_64.
+NARROW = (128, 64)
 # Recurrence kernel vs plain recurrence, absolute on h in (-1, 1);
 # measured 8.7e-4 (B=6) and 1.1e-3 (B=48) on an H100.
 REC_TOL = 5e-3
@@ -514,6 +520,8 @@ def kernel_checks(torch, pipeline, device):
                 xp_p, wh_cat), 5),
             plain_ms=cuda_ms(torch, lambda: cuda_lstm
                              .recurrence_tmajor_plain(xp_p, wh_cat), 1))
+        results["bilstm_recurrence"][B]["us_per_step"] = \
+            results["bilstm_recurrence"][B]["ms"] * 1e3 / T
 
         # K6 whole: projection kernel then recurrence kernel, against the
         # plain layer.  On top of the recurrence's tolerance, each
@@ -537,13 +545,45 @@ def kernel_checks(torch, pipeline, device):
         results["bilstm_proj"]["T={},B={},D={},F={}".format(
             T_r, B_r, D_r, F_r)] = projection_entry(
                 torch, *projection_inputs(torch, gen, T_r, B_r, D_r, F_r), 5)
+    results["bilstm_recurrence"]["narrow"] = narrow_recurrence(torch, gen)
     for name, by_b in results.items():
         for B, r in by_b.items():
             log("  {:<18s} {:<6s} {:<28s} kernel {:9.4f} ms | plain "
                 "{:9.4f} ms".format(
                     name, "B={}".format(B) if isinstance(B, int)
-                    else "ragged", r["shape"], r["ms"], r["plain_ms"]))
+                    else "ragged" if name == "bilstm_proj" else B,
+                    r["shape"], r["ms"], r["plain_ms"]))
     return results
+
+
+def narrow_recurrence(torch, gen, T=T_BUCKET, B=BATCHES[0], D=NARROW[0],
+                      F=NARROW[1]):
+    """K3 at a narrow BiLSTM width (the quality-pin recipe's
+    ``RNNDYN-2_RELU_128-1_BiLSTM_64-1_FC_67``: F = 64, 16 blocks)
+    against its plain version, with the tolerance of the full width, and
+    its time beside cuDNN's LSTM of that width."""
+    from idiaptts_torch.ops import cuda_lstm
+    xin, wx, bias = projection_inputs(torch, gen, T, B, D, F)
+    xp = cuda_lstm.projection_tmajor_plain(xin, wx, bias)
+    wh = (torch.randn(2 * F, 4 * F, generator=gen, device=xp.device)
+          / np.sqrt(F)).to(torch.bfloat16)
+    err = (cuda_lstm.bilstm_recurrence_tmajor(xp, wh)
+           - cuda_lstm.recurrence_tmajor_plain(xp, wh)).abs().max().item()
+    _check("bilstm_recurrence", err, REC_TOL,
+           "T={} R={} F={}".format(T, 2 * B, F))
+    lstm = cudnn_lstm(torch, D, F, xp.device).eval()
+    x_seq = xin[:, :B].contiguous()
+    with torch.no_grad():
+        lib_ms = cuda_ms(torch, lambda: lstm(x_seq), 5)
+    ms = cuda_ms(torch, lambda: cuda_lstm.bilstm_recurrence_tmajor(xp, wh),
+                 5)
+    return dict(shape="T={},R={},F={}".format(T, 2 * B, F),
+                max_abs_err=err, ms=ms, us_per_step=ms * 1e3 / T,
+                plain_ms=cuda_ms(torch, lambda: cuda_lstm
+                                 .recurrence_tmajor_plain(xp, wh), 1),
+                library_ms=lib_ms,
+                **dict(zip(("bound_ms", "bound_by"),
+                           lstm_bound(T, 2 * B, D, F, "rec"))))
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -662,7 +702,8 @@ def check_against_cpu(torch, pipeline, cpu_pipe, model, questions):
 
 def time_slice(torch, pipeline, model, questions, card):
     """CUDA-event label -> waveform xRT at the fixture batch and the 8x
-    capacity batch, plus per-stage ms."""
+    capacity batch, plus per-stage ms and the device split of a batch
+    (torch.profiler: busy ms, idle share, ms by kernel)."""
     out = {}
     for rep in (1, 8):
         qs = list(questions) * rep
@@ -683,13 +724,32 @@ def time_slice(torch, pipeline, model, questions, card):
                 "vocoder_ms": cuda_ms(torch, lambda: pipeline
                                       .vocoder_stage(sm, vuv, f0c), 5),
             }
+            kernels = profile_step(torch, lambda: pipeline.run(
+                model, batch, lengths, f0c))
+        busy = sum(kernels.values())
         out[B] = dict(T=T, audio_s=audio_s, total_ms=total,
-                      xrt=audio_s / (total / 1e3), **stages)
+                      xrt=audio_s / (total / 1e3), **stages,
+                      device_busy_ms=busy if kernels else None,
+                      idle_share=1.0 - busy / total if kernels else None,
+                      port_kernels_ms=port_kernel_ms(kernels),
+                      top_kernels_ms=dict(sorted(
+                          kernels.items(), key=lambda kv: -kv[1])[:10]))
         log("  B={} T={} audio {:.2f} s: label->wav {:.3f} ms = {:.1f}x "
             "realtime | model {:.3f} ms, mlpg {:.3f} ms, vocoder {:.3f} ms "
             "[{}]".format(B, T, audio_s, total, out[B]["xrt"],
                           stages["model_ms"], stages["mlpg_ms"],
                           stages["vocoder_ms"], card))
+        if kernels:
+            log("    device busy {:.3f} ms a batch (idle {:.1%}); port "
+                "kernels ms: {}".format(busy, 1.0 - busy / total,
+                                        json.dumps(out[B]
+                                                   ["port_kernels_ms"])))
+            for name, v in out[B]["top_kernels_ms"].items():
+                log("    {:9.3f} ms  {:5.1%}  {}".format(v, v / busy,
+                                                        name[:100]))
+        else:
+            log("    torch.profiler recorded no device time: device split "
+                "not measured")
     return out
 
 
@@ -760,6 +820,7 @@ def train_kernel_checks(torch, device, T=TRAIN_T, batches=TRAIN_BATCHES,
         lib_fwd = cuda_ms(torch, lambda: lstm(x_seq), reps)
         out["bilstm_recurrence_train"][B] = dict(
             shape=shape, max_abs_err=max(errs.values()), ms=rb_ms,
+            us_per_step=rb_ms * 1e3 / T,
             plain_ms=cuda_ms(torch, lambda: cuda_lstm
                              .recurrence_train_tmajor_plain(xp, wh), 1),
             library_ms=lib_fwd,
@@ -949,6 +1010,21 @@ def profile_step(torch, step, steps=2):
     return per_kernel
 
 
+def port_kernel_ms(kernels):
+    """Device ms of the LSTM kernels in a profile_step result, by
+    demangled name; the recurrence's template instances are
+    <m-tiles, TRAIN, residual type>."""
+    def recurrence(train):
+        return lambda n: ("bilstm_recurrence_kernel<" in n
+                          and (", true" in n) == train)
+    picks = (("bilstm_proj", lambda n: "bilstm_proj_kernel" in n),
+             ("bilstm_recurrence", recurrence(False)),
+             ("bilstm_recurrence_train", recurrence(True)),
+             ("bilstm_bwd", lambda n: "bilstm_bwd_kernel" in n))
+    return {name: sum(v for n, v in kernels.items() if pick(n))
+            for name, pick in picks}
+
+
 def time_train_step(torch, device, card, batches=TRAIN_BATCHES, T=TRAIN_T,
                     reps=5):
     """The handler's train step (forward, masked MSE, backward, global
@@ -992,14 +1068,7 @@ def time_train_step(torch, device, card, batches=TRAIN_BATCHES, T=TRAIN_T,
         kernels = profile_step(torch, step)
         busy = sum(kernels.values())
         top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:12])
-        # Demangled kernel names; the training recurrence is the
-        # template instance with TRAIN = true.
-        ours = {name: sum(v for n, v in kernels.items() if pattern in n)
-                for name, pattern in (
-                    ("bilstm_proj", "bilstm_proj_kernel"),
-                    ("bilstm_recurrence_train",
-                     "bilstm_recurrence_kernel<true"),
-                    ("bilstm_bwd", "bilstm_bwd_kernel"))}
+        ours = port_kernel_ms(kernels)
         out[B] = dict(T=T, step_ms=ms, frames_per_s=fps,
                       tflops_per_s=flops * fps / 1e12,
                       device_busy_ms=busy if kernels else None,
@@ -1818,7 +1887,10 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
             entry["vocode_path"] = vstats
         if name == "mlpg_oneshot":
             entry["evaluate_path"] = estats
-        for k in ("layer_max_abs_err", "layer_ms", "layer_plain_ms"):
+        if name == "bilstm_recurrence":
+            entry["narrow"] = kres[name]["narrow"]
+        for k in ("layer_max_abs_err", "layer_ms", "layer_plain_ms",
+                  "us_per_step"):
             if k in first:
                 entry[k] = first[k]
         kernels.append(entry)

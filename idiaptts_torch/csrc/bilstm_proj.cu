@@ -59,7 +59,17 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using idt::fence_acc;
+using idt::global_ns;
+using idt::smem_desc;
+using idt::smem_u32;
+using idt::wgmma_commit;
+using idt::wgmma_fence;
+using idt::wgmma_wait;
 
 constexpr int BM = 128;                        // rows a tile
 constexpr int BN = 256;                        // columns a tile
@@ -103,10 +113,6 @@ __device__ __forceinline__ Tile tile_at(const Tiling& s, int i) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
                "r"(count)
@@ -126,20 +132,13 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar,
   return done != 0;
 }
 
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Waits for the phase of parity `parity` to complete.  A wait of more
-// than 4 s can only be a broken hand-over: trap, so the launch fails with
-// an error instead of holding the card.
+// Waits for the phase of parity `parity` to complete; traps after
+// idt::SPIN_LIMIT_NS (4 s).
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   if (mbar_try_wait(bar, parity)) return;
   const uint64_t t0 = global_ns();
   while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > 4000000000ull) __trap();
+    if (global_ns() - t0 > idt::SPIN_LIMIT_NS) __trap();
 }
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -177,38 +176,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// byte offset (K-major: unused; N-major: the next 64-column atom) and
-// stride byte offset (the next 8-row / 8-k group of 1024 bytes).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D (64 x N, float32) += A (64 x 16, K-major) . B (16 x N, N-major).  The

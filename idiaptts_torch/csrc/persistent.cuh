@@ -1,12 +1,15 @@
 // Shared pieces of the persistent cooperative BiLSTM kernels
 // (bilstm_recurrence.cu, bilstm_bwd.cu): bf16 unpacking, the grid-wide
-// barrier and the checked cooperative launch.
+// barrier, the barrier of a group of blocks and the checked cooperative
+// launch.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace idt {
 
@@ -60,15 +63,54 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter,
   __syncthreads();
 }
 
+// Barrier of a group of blocks (the blocks of one BiLSTM direction) on
+// their own arrival counter, split in two so that work that does not
+// depend on the other blocks (the next step's loads) runs between them.
+// group_arrive: after every thread's stores, one release-ordered
+// increment (fence.acq_rel.gpu, then a relaxed reduction).
+// group_wait: thread 0 polls with acquire loads until the n-th barrier's
+// n * (group size) arrivals are in; no sleep between polls.  A wait
+// longer than SPIN_LIMIT_NS traps.  As for grid_barrier, every block
+// must be resident.
+__device__ __forceinline__ void group_arrive(unsigned int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile(
+        "fence.acq_rel.gpu;\n\t"
+        "red.relaxed.gpu.global.add.u32 [%0], 1;" ::"l"(counter)
+        : "memory");
+}
+
+__device__ __forceinline__ unsigned int load_acquire(
+    const unsigned int* counter) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(counter)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void group_wait(const unsigned int* counter,
+                                           unsigned int target) {
+  if (threadIdx.x == 0 && load_acquire(counter) < target) {
+    const uint64_t t0 = global_ns();
+    while (load_acquire(counter) < target)
+      if (global_ns() - t0 > SPIN_LIMIT_NS) __trap();
+  }
+  __syncthreads();
+}
+
 // Cooperative launch of `kernel` on `blocks` x `threads` with `smem`
 // bytes of dynamic shared memory, after checking that every block can be
 // resident at once (a spinning grid barrier over blocks that are not all
-// resident hangs).  Zeroes the barrier counter first.  Returns a
-// cudaError_t.
+// resident hangs).  Zeroes the `bar_bytes` of barrier counters first.
+// Returns a cudaError_t.
 template <typename Kernel>
 cudaError_t launch_persistent(Kernel kernel, int blocks, int threads,
                               size_t smem, void** args, unsigned int* bar,
-                              cudaStream_t stream) {
+                              cudaStream_t stream,
+                              size_t bar_bytes = sizeof(unsigned int)) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -89,7 +131,7 @@ cudaError_t launch_persistent(Kernel kernel, int blocks, int threads,
                                                       threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaMemsetAsync(bar, 0, sizeof(unsigned int), stream);
+  err = cudaMemsetAsync(bar, 0, bar_bytes, stream);
   if (err != cudaSuccess) return err;
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                     dim3(blocks), dim3(threads), args, smem,

@@ -221,13 +221,22 @@ def bilstm_projection_tmajor(xin_t, wx, b):
     return xp
 
 
+def _recurrence_counters(device):
+    """The recurrence kernel's two arrival counters, one per direction,
+    each on its own 128-byte line (the kernel zeroes them)."""
+    return torch.empty(64, dtype=torch.int32, device=device)
+
+
 def bilstm_recurrence_tmajor(xp_t, wh_cat):
     """Both directions' recurrence over precomputed projections (the role
     of ``pallas_lstm.bilstm_recurrence_tmajor``).
 
     xp_t: (T, 2*Bp, 4F) float32; wh_cat: (2F, 4F).  Returns
     (T, 2*Bp, F) float32.  CUDA tensors launch the persistent hand
-    kernel, which needs F a multiple of 128 and at most 512."""
+    kernel, which takes F a multiple of 16 and Bp <= 256 as far as its
+    shared memory (the F x 32 Wh slice and ceil(Bp/64) tiles of 64 x F
+    bf16) and the co-residency of its 2F/8 blocks admit, and raises
+    :class:`dispatch.KernelError` beyond (for example F = 1024)."""
     if not dispatch.use_kernel(xp_t, wh_cat):
         return recurrence_tmajor_plain(xp_t, wh_cat)
     T, R, G, F = _gates_shape(xp_t, "xp_t")
@@ -236,7 +245,7 @@ def bilstm_recurrence_tmajor(xp_t, wh_cat):
     dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (2 * F, G))
     out = torch.empty(T, R, F, dtype=torch.float32, device=xp_t.device)
     hbuf = torch.empty(2, R, F, dtype=torch.bfloat16, device=xp_t.device)
-    bar = torch.empty(1, dtype=torch.int32, device=xp_t.device)
+    bar = _recurrence_counters(xp_t.device)
     RECURRENCE(xp_t.device, xp_t.data_ptr(), wh_cat.data_ptr(),
                out.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), T, R // 2,
                F)
@@ -274,7 +283,7 @@ def bilstm_recurrence_train_tmajor(xp_t, wh_cat, res_bf16=False):
     a = torch.empty(T, R, G, dtype=rdt, device=dev)
     c = torch.empty(T, R, F, dtype=rdt, device=dev)
     hbuf = torch.empty(2, R, F, dtype=torch.bfloat16, device=dev)
-    bar = torch.empty(1, dtype=torch.int32, device=dev)
+    bar = _recurrence_counters(dev)
     RECURRENCE_TRAIN(dev, xp_t.data_ptr(), wh_cat.data_ptr(),
                      out.data_ptr(), a.data_ptr(), c.data_ptr(),
                      hbuf.data_ptr(), bar.data_ptr(), T, R // 2, F,

@@ -60,10 +60,10 @@ EXPECT = "        mbar_expect_tx(full, tx);"
 K_LOOP = "for (int kb = 0; kb < s.k_blocks; ++kb) {"
 
 
-def _sub(src, old, new, count=1):
+def _sub(src, old, new, count=1, source="bilstm_proj.cu"):
     if src.count(old) != count:
-        raise SystemExit("probe_bilstm_proj: anchor not found {} time(s) in "
-                         "bilstm_proj.cu:\n{}".format(count, old))
+        raise SystemExit("probe: anchor not found {} time(s) in {}:\n{}"
+                         .format(count, source, old))
     return src.replace(old, new)
 
 
@@ -87,8 +87,16 @@ def variants(src):
     }
 
 
-def build(srcs, out_dir):
+ENTRIES = {"idt_bilstm_proj": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4}
+
+
+def build(srcs, out_dir, entries=None):
+    """One nvcc per variant source, all started together (the sources'
+    headers from ``idiaptts_torch/csrc``); returns the loaded libraries
+    with ``entries`` ({symbol: argtypes without the stream}) typed, and
+    ptxas' register and spill lines per variant."""
     from idiaptts_torch.ops import dispatch
+    entries = ENTRIES if entries is None else entries
     nvcc = dispatch.nvcc_path()
     procs = {}
     for name, text in srcs.items():
@@ -96,8 +104,8 @@ def build(srcs, out_dir):
         with open(path, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [nvcc, *dispatch.NVCC_FLAGS, "-shared", "-o",
-             os.path.join(out_dir, name + ".so"), path],
+            [nvcc, *dispatch.NVCC_FLAGS, "-I", dispatch.CSRC_DIR, "-shared",
+             "-o", os.path.join(out_dir, name + ".so"), path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, ptxas = {}, {}
     for name, proc in procs.items():
@@ -106,12 +114,13 @@ def build(srcs, out_dir):
             raise SystemExit("nvcc failed for {}:\n{}".format(name, log))
         ptxas[name] = [line.split(":", 1)[-1].strip()
                        for line in log.splitlines()
-                       if "registers" in line or "spill" in line][-2:]
+                       if "registers" in line or "spill" in line
+                       or "Compiling entry" in line]
         lib = ctypes.CDLL(os.path.join(out_dir, name + ".so"))
-        lib.idt_bilstm_proj.argtypes = ([ctypes.c_void_p] * 4
-                                        + [ctypes.c_int] * 4
-                                        + [ctypes.c_void_p])
-        lib.idt_bilstm_proj.restype = ctypes.c_int
+        for symbol, argtypes in entries.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         libs[name] = lib
     return libs, ptxas
 

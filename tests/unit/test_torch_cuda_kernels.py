@@ -97,8 +97,16 @@ def test_projection_kernel_matches_plain(dev, T, B, D, F):
                        out + rows_b)
 
 
+# The recurrence kernel's edges: T = 1 (no barrier), Bp = 1 and 7 (a
+# partly filled 64-row m-tile), 64 and 65 (one full tile, then one row
+# more), 130 (three tiles), 256 (four, the most); F = 64 (8 blocks a
+# direction, one 64-deep k block) to 512, and F = 80 (a k block of 16).
 @pytest.mark.parametrize("T,B,F", [(37, 3, 128), (8, 1, 256), (96, 9, 512),
-                                   (64, 48, 512)])
+                                   (64, 48, 512), (1, 6, 512), (1, 1, 64),
+                                   (29, 1, 512), (33, 7, 64), (20, 64, 256),
+                                   (20, 65, 128), (12, 130, 512),
+                                   (12, 130, 64), (8, 256, 64),
+                                   (15, 5, 80)])
 def test_recurrence_kernel_matches_plain(dev, T, B, F):
     g = _gen(dev, 2)
     xp = 0.5 * torch.randn(T, 2 * B, 4 * F, generator=g, device=dev)
@@ -111,11 +119,18 @@ def test_recurrence_kernel_matches_plain(dev, T, B, F):
     torch.testing.assert_close(out, ref, rtol=0, atol=REC_TOL)
 
 
-def test_recurrence_kernel_refuses_unsupported_width(dev):
-    xp = torch.zeros(4, 2, 4 * 96, device=dev)
+@pytest.mark.parametrize("B,F", [(1, 100), (257, 64), (6, 1024)],
+                         ids=["F%16", "Bp>256", "not-co-resident"])
+def test_recurrence_kernel_refuses_unsupported_width(dev, B, F):
+    """F must be a multiple of 16 and Bp at most 256; F = 1024 needs 256
+    blocks of ~193 KB of shared memory, which cannot all be resident.
+    The wrapper raises and never falls back to the plain version."""
+    xp = torch.zeros(4, 2 * B, 4 * F, device=dev)
+    before = cuda_lstm.RECURRENCE.launches
     with pytest.raises(dispatch.KernelError):
-        cuda_lstm.bilstm_recurrence_tmajor(xp, torch.zeros(192, 384,
+        cuda_lstm.bilstm_recurrence_tmajor(xp, torch.zeros(2 * F, 4 * F,
                                                            device=dev))
+    assert cuda_lstm.RECURRENCE.launches == before
 
 
 def test_projection_refuses_a_width_tma_cannot_stride(dev):
@@ -139,7 +154,16 @@ def test_kernels_refuse_wrong_dtype(dev):
 @pytest.mark.parametrize("T,B,F,res_bf16", [(37, 3, 128, False),
                                             (19, 8, 256, True),
                                             (64, 32, 512, False),
-                                            (48, 8, 512, True)])
+                                            (48, 8, 512, True),
+                                            (1, 1, 64, False),
+                                            (1, 6, 512, True),
+                                            (25, 7, 64, True),
+                                            (16, 64, 256, False),
+                                            (16, 65, 128, True),
+                                            (10, 130, 512, False),
+                                            (10, 130, 64, True),
+                                            (6, 200, 128, True),
+                                            (9, 3, 80, False)])
 def test_train_recurrence_kernel(dev, T, B, F, res_bf16):
     """The training instance returns the inference kernel's h bit for bit,
     and gates and cells within the recurrence tolerance of the plain

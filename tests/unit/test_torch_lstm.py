@@ -30,7 +30,8 @@ def _rand_recurrence(B, T, F, seed=0):
     return x_proj, wh
 
 
-@pytest.mark.parametrize("B,T,F", [(3, 37, 128), (1, 8, 256), (9, 96, 128)])
+@pytest.mark.parametrize("B,T,F", [(3, 37, 128), (1, 8, 256), (9, 96, 128),
+                                   (5, 23, 64)])
 def test_recurrence_plain_matches_jax_scan(B, T, F):
     x_proj, wh = _rand_recurrence(B, T, F)
     ref = np.asarray(pallas_lstm.bilstm_recurrence_scan(
@@ -41,7 +42,7 @@ def test_recurrence_plain_matches_jax_scan(B, T, F):
     np.testing.assert_allclose(out, ref, rtol=0, atol=REC_ATOL)
 
 
-@pytest.mark.parametrize("B,T,F", [(3, 37, 128), (1, 8, 256)])
+@pytest.mark.parametrize("B,T,F", [(3, 37, 128), (1, 8, 256), (2, 19, 64)])
 def test_recurrence_tmajor_matches_pallas_interpret(B, T, F):
     x_proj, wh = _rand_recurrence(B, T, F, seed=1)
     ref = np.asarray(pallas_lstm.bilstm_recurrence_pallas(
