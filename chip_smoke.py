@@ -34,12 +34,14 @@ other error raises at once):
    B = 6 and B = 48, per-stage ms, and the device split of one batch
    from torch.profiler).
 5. The training kernels against their plain versions at the training
-   benchmark's shapes (T = 1024, D = 1024, F = 512, B = 8 and 32): the
-   training recurrence's h bit-identical to the inference kernel's, its
-   gates and cells, the reverse-time backward's dz (float32 and bf16
+   benchmark's shapes (T = 1024, D = 1024, F = 512, B = 8, 32 and 64):
+   the training recurrence's h bit-identical to the inference kernel's,
+   its gates and cells, the reverse-time backward's dz (float32 and bf16
    residuals), the projection, and one layer's autograd gradients
    against autograd through the plain layer; CUDA-event times beside
-   cuDNN's LSTM (the projection: beside ``torch.bmm``).
+   cuDNN's LSTM (the projection: beside ``torch.bmm``).  The training
+   recurrence and the backward also at the narrow width F = 64
+   (``NARROW``, B = 8).
 6. The training path at full width: ``AcousticModelTrainer`` on the
    fixture corpus on ``cuda`` (3 epochs, batch 2, 25% validation), with
    the launch counters reset just before ``train`` and read just after;
@@ -49,6 +51,11 @@ other error raises at once):
    port's CPU path on one utterance.  Then the handler's train step is
    timed at B = 8 and 32, T = 1024, on seeded random data (CUDA events;
    frames/s, TFLOP/s, and device time per kernel from torch.profiler).
+   Then the quality-pin recipe ``RNNDYN-2_RELU_128-1_BiLSTM_64-1_FC_67``
+   (F = 64) takes ``NARROW_TRAIN_STEPS`` handler train steps on one
+   seeded batch (B = 8, T = 1024), counters reset just before and read
+   just after: the backward must launch once per BiLSTM layer and step,
+   and the loss must be finite and fall.
 7. The WaveNet sampler kernel against its plain version at the
    production widths (``WaveNetWrapper.Config`` defaults: 20 layers in 2
    stacks, 64 residual/skip channels, 256 classes; random weights from a
@@ -130,9 +137,17 @@ REC_TOL = 5e-3
 PROJ_RAGGED = ((37, 7, 1000, 96), (50, 6, 409, 128))
 
 # Training benchmark shapes (bench_training.py:35-114): bucket T, batches,
-# question width; the full-width model's output width.
+# question width; the full-width model's output width.  Phase 5 also holds
+# the training kernels at B = 64 (128 rows, the largest training batch
+# the JAX package runs in its kernel, pallas_lstm.py:train_viable).
 TRAIN_T = 1024
 TRAIN_BATCHES = (8, 32)
+KERNEL_TRAIN_BATCHES = TRAIN_BATCHES + (64,)
+# The quality-pin recipe (tests/integration/test_quality_pins.py:98),
+# whose BiLSTM is NARROW: phase 6 trains it for a few handler steps.
+NARROW_MODEL_STRING = "RNNDYN-2_RELU_128-1_BiLSTM_64-1_FC_67"
+NARROW_TRAIN_STEPS = 8
+NARROW_TRAIN_B = 8
 TRAIN_D_IN, TRAIN_D_OUT = 409, 67
 TRAIN_EPOCHS = 3
 
@@ -761,8 +776,9 @@ def _rel(x, ref):
     return (x - ref).abs().max().item() / max(1.0, ref.abs().max().item())
 
 
-def train_kernel_checks(torch, device, T=TRAIN_T, batches=TRAIN_BATCHES,
-                        D=D_IN, F=F_HIDDEN, reps=5):
+def train_kernel_checks(torch, device, T=TRAIN_T,
+                        batches=KERNEL_TRAIN_BATCHES, D=D_IN, F=F_HIDDEN,
+                        reps=5):
     """The training kernels against their plain versions at the training
     benchmark's shapes.  Returns {kernel name: {B: measurements}} for the
     training recurrence, the backward and (at these shapes) the
@@ -843,10 +859,11 @@ def train_kernel_checks(torch, device, T=TRAIN_T, batches=TRAIN_BATCHES,
         y_seq, _ = lstm(x_seq)
         gy = torch.randn(y_seq.shape, generator=gen, device=device,
                          dtype=y_seq.dtype)
+        bwd_ms = cuda_ms(torch, lambda: cuda_lstm.dz_bwd_tmajor(
+            a, c, gout, wh), reps)
         out["bilstm_bwd"][B] = dict(
-            shape=shape, max_abs_err=bwd_errs[False],
-            ms=cuda_ms(torch, lambda: cuda_lstm.dz_bwd_tmajor(
-                a, c, gout, wh), reps),
+            shape=shape, max_abs_err=bwd_errs[False], ms=bwd_ms,
+            us_per_step=bwd_ms * 1e3 / T,
             plain_ms=cuda_ms(torch, lambda: cuda_lstm.dz_bwd_tmajor_plain(
                 a, c, gout, wh), 1),
             library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
@@ -864,13 +881,68 @@ def train_kernel_checks(torch, device, T=TRAIN_T, batches=TRAIN_BATCHES,
         if B == batches[0]:
             layer_gradients(torch, xin, wx, wh, bias, gen)
         del xp, h_inf, res, a, c
+    out["bilstm_recurrence_train"]["narrow"], out["bilstm_bwd"]["narrow"] = \
+        narrow_training_kernels(torch, gen, T, reps=reps)
     for name, by_b in out.items():
         for B, r in by_b.items():
-            log("  {:<24s} B={:<3d} {:<24s} kernel {:9.4f} ms | plain "
+            log("  {:<24s} {:<6s} {:<24s} kernel {:9.4f} ms | plain "
                 "{:9.4f} ms | library {:9.4f} ms | bound {:8.4f} ms ({})"
-                .format(name, B, r["shape"], r["ms"], r["plain_ms"],
-                        r["library_ms"], r["bound_ms"], r["bound_by"]))
+                .format(name, "B={}".format(B) if isinstance(B, int) else B,
+                        r["shape"], r["ms"], r["plain_ms"], r["library_ms"],
+                        r["bound_ms"], r["bound_by"]))
     return out
+
+
+def narrow_training_kernels(torch, gen, T=TRAIN_T, B=NARROW_TRAIN_B,
+                            D=NARROW[0], F=NARROW[1], reps=5):
+    """K4 and K5 at the quality-pin recipe's BiLSTM width (F = 64: 16
+    blocks) against their plain versions with the full width's
+    tolerances, timed beside cuDNN's LSTM of that width (training
+    forward; backward to the input).  Returns (K4's, K5's)
+    measurements."""
+    from idiaptts_torch.ops import cuda_lstm
+    R = 2 * B
+    shape = "T={},R={},F={}".format(T, R, F)
+    xin, wx, bias = projection_inputs(torch, gen, T, B, D, F)
+    xp = cuda_lstm.projection_tmajor_plain(xin, wx, bias)
+    wh = (torch.randn(2 * F, 4 * F, generator=gen, device=xp.device)
+          / np.sqrt(F)).to(torch.bfloat16)
+    h, a, c = cuda_lstm.bilstm_recurrence_train_tmajor(xp, wh)
+    h_p, a_p, c_p = cuda_lstm.recurrence_train_tmajor_plain(xp, wh)
+    errs = {"h": (h - h_p).abs().max().item(),
+            "a": (a - a_p).abs().max().item(), "c": _rel(c, c_p)}
+    for k, e in errs.items():
+        _check("rec_train " + k, e, REC_TOL, shape + " f32 res")
+    gout = 0.1 * torch.randn(T, R, F, generator=gen, device=xp.device)
+    dz = cuda_lstm.dz_bwd_tmajor(a, c, gout, wh)
+    dz_p = cuda_lstm.dz_bwd_tmajor_plain(a, c, gout, wh)
+    _check("bilstm_bwd dz", _rel(dz, dz_p), 1e-3, shape + " f32 res")
+    lstm = cudnn_lstm(torch, D, F, xp.device).train()
+    x_seq = xin[:, :B].detach().contiguous().requires_grad_()
+    lib_fwd = cuda_ms(torch, lambda: lstm(x_seq), reps)
+    y_seq, _ = lstm(x_seq)
+    gy = torch.randn(y_seq.shape, generator=gen, device=xp.device,
+                     dtype=y_seq.dtype)
+    rec_ms = cuda_ms(torch, lambda: cuda_lstm.bilstm_recurrence_train_tmajor(
+        xp, wh), reps)
+    bwd_ms = cuda_ms(torch, lambda: cuda_lstm.dz_bwd_tmajor(a, c, gout, wh),
+                     reps)
+    rec = dict(shape=shape, max_abs_err=max(errs.values()), ms=rec_ms,
+               us_per_step=rec_ms * 1e3 / T,
+               plain_ms=cuda_ms(torch, lambda: cuda_lstm
+                                .recurrence_train_tmajor_plain(xp, wh), 1),
+               library_ms=lib_fwd,
+               **dict(zip(("bound_ms", "bound_by"),
+                          lstm_bound(T, R, D, F, "rec_train"))))
+    bwd = dict(shape=shape, max_abs_err=(dz - dz_p).abs().max().item(),
+               ms=bwd_ms, us_per_step=bwd_ms * 1e3 / T,
+               plain_ms=cuda_ms(torch, lambda: cuda_lstm
+                                .dz_bwd_tmajor_plain(a, c, gout, wh), 1),
+               library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                   y_seq, x_seq, gy, retain_graph=True), reps),
+               **dict(zip(("bound_ms", "bound_by"),
+                          lstm_bound(T, R, D, F, "bwd"))))
+    return rec, bwd
 
 
 def layer_gradients(torch, xin, wx, wh, bias, gen):
@@ -1025,19 +1097,15 @@ def port_kernel_ms(kernels):
             for name, pick in picks}
 
 
-def time_train_step(torch, device, card, batches=TRAIN_BATCHES, T=TRAIN_T,
-                    reps=5):
-    """The handler's train step (forward, masked MSE, backward, global
-    norm, Adam) at full width on seeded random data already on the card
-    (set-up, as a data loader's prefetch would place it)."""
+def train_handler(device, model_string):
+    """A ModularModelHandler for ``model_string`` at the question width,
+    Adam at 1e-3 and the masked per-frame MSE."""
     from idiaptts_torch.hparams import ExtendedHParams
     from idiaptts_torch.models.losses import NamedLoss
     from idiaptts_torch.models.rnn_dyn import convert_legacy_string
     from idiaptts_torch.train.handler import ModularModelHandler
     handler = ModularModelHandler(device=device)
-    cfg = convert_legacy_string(
-        "RNNDYN-2_RELU_1024-3_BiLSTM_512-1_FC_{}".format(TRAIN_D_OUT),
-        TRAIN_D_IN)
+    cfg = convert_legacy_string(model_string, TRAIN_D_IN)
     cfg.input_names = ("questions",)
     cfg.output_names = ("pred",)
     handler.create_model(cfg)
@@ -1047,16 +1115,72 @@ def time_train_step(torch, device, card, batches=TRAIN_BATCHES, T=TRAIN_T,
     handler.set_losses([NamedLoss.Config(
         "mse", "MSELoss", ("pred", "target"), seq_mask="_seq_mask",
         reduction="mean_per_frame")])
+    return handler
+
+
+def random_batch(torch, device, B, T):
+    """Seeded random questions and targets of B full-length utterances,
+    already on the card (set-up, as a data loader's prefetch would place
+    them)."""
+    return {
+        "questions": torch.from_numpy(np.random.RandomState(0).randn(
+            B, T, TRAIN_D_IN).astype(np.float32)).to(device),
+        "target": torch.from_numpy(np.random.RandomState(1).randn(
+            B, T, TRAIN_D_OUT).astype(np.float32)).to(device),
+        "_seq_mask": torch.ones(B, T, 1, device=device),
+        "_lengths": {"questions": [T] * B}}
+
+
+def narrow_train_steps(torch, device, card, steps=NARROW_TRAIN_STEPS,
+                       B=NARROW_TRAIN_B, T=TRAIN_T):
+    """The quality-pin recipe (``NARROW_MODEL_STRING``, BiLSTM F = 64)
+    through the handler's train step on one seeded batch, counters reset
+    just before and read just after: every training kernel launched, the
+    backward once per BiLSTM layer and step, the loss finite and falling.
+    Then the step's CUDA-event time."""
+    from idiaptts_torch.ops import dispatch
+    handler = train_handler(device, NARROW_MODEL_STRING)
+    batch = random_batch(torch, device, B, T)
+    layers = sum(int(part.split("_")[0])
+                 for part in NARROW_MODEL_STRING.split("-")
+                 if "_BiLSTM_" in part)
+    dispatch.reset_counts()
+    losses = [handler.process_batches([batch])[0] for _ in range(steps)]
+    torch.cuda.synchronize()
+    launches = dispatch.counts()
+    log("  {} B={} T={}: loss per step {} | launches {}".format(
+        NARROW_MODEL_STRING, B, T, ["{:.5f}".format(x) for x in losses],
+        json.dumps(launches)))
+    require_launches(launches, ("bilstm_proj", "bilstm_recurrence_train",
+                                "bilstm_bwd"), "narrow training")
+    if launches.get("bilstm_bwd", 0) != layers * steps:
+        fail("narrow training: bilstm_bwd launched {} times, expected {} "
+             "({} BiLSTM layer(s) x {} steps)".format(
+                 launches.get("bilstm_bwd", 0), layers * steps, layers,
+                 steps))
+    if not np.all(np.isfinite(losses)):
+        fail("narrow training: non-finite loss {}".format(losses))
+    if not losses[-1] < losses[0]:
+        fail("narrow training: loss did not fall: {}".format(losses))
+    ms = cuda_ms(torch, lambda: handler.process_batches([batch]), 3)
+    log("  narrow train step B={} T={}: {:.3f} ms, {:.0f} frames/s [{}]"
+        .format(B, T, ms, B * T / (ms / 1e3), card))
+    return dict(model=NARROW_MODEL_STRING, B=B, T=T, losses=losses,
+                launches=launches, step_ms=ms,
+                frames_per_s=B * T / (ms / 1e3))
+
+
+def time_train_step(torch, device, card, batches=TRAIN_BATCHES, T=TRAIN_T,
+                    reps=5):
+    """The handler's train step (forward, masked MSE, backward, global
+    norm, Adam) at full width on seeded random data already on the card
+    (set-up, as a data loader's prefetch would place it)."""
+    handler = train_handler(
+        device, "RNNDYN-2_RELU_1024-3_BiLSTM_512-1_FC_{}".format(TRAIN_D_OUT))
     flops = 3 * fwd_flops_per_frame(TRAIN_D_IN, TRAIN_D_OUT)
     out = {}
     for B in batches:
-        batch = {
-            "questions": torch.from_numpy(np.random.RandomState(0).randn(
-                B, T, TRAIN_D_IN).astype(np.float32)).to(device),
-            "target": torch.from_numpy(np.random.RandomState(1).randn(
-                B, T, TRAIN_D_OUT).astype(np.float32)).to(device),
-            "_seq_mask": torch.ones(B, T, 1, device=device),
-            "_lengths": {"questions": [T] * B}}
+        batch = random_batch(torch, device, B, T)
 
         def step():
             handler.process_batches([batch])
@@ -1825,6 +1949,8 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
     log("  train step timing:", json.dumps({str(k): v for k, v in
                                              step_timing.items()}))
     torch.cuda.empty_cache()
+    narrow = narrow_train_steps(torch, device, card)
+    torch.cuda.empty_cache()
 
     log("== phase 7: WaveNet sampler kernel against its plain version, "
         "{} layers, C={} [{}]".format(WN_LAYERS, WN_COND, card))
@@ -1866,6 +1992,7 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
             second = wres[WN_CHECK_BATCHES[-1]]
         by_path = {"serve": serve_launches[name],
                    "train": train_launches[name],
+                   "train_narrow": narrow["launches"][name],
                    "vocode": vocode_launches[name],
                    "evaluate": eval_launches[name]}
         entry = {"name": name, "route": "cuda", "source": source,
@@ -1889,6 +2016,12 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
             entry["evaluate_path"] = estats
         if name == "bilstm_recurrence":
             entry["narrow"] = kres[name]["narrow"]
+        if name in ("bilstm_recurrence_train", "bilstm_bwd"):
+            entry["third_batch"] = tres[name][KERNEL_TRAIN_BATCHES[2]]
+            entry["narrow"] = tres[name]["narrow"]
+        if name == "bilstm_bwd":
+            entry["narrow_training"] = {k: narrow[k] for k in (
+                "model", "B", "T", "losses", "step_ms", "frames_per_s")}
         for k in ("layer_max_abs_err", "layer_ms", "layer_plain_ms",
                   "us_per_step"):
             if k in first:

@@ -105,7 +105,8 @@ __device__ __forceinline__ void group_wait(const unsigned int* counter,
 // bytes of dynamic shared memory, after checking that every block can be
 // resident at once (a spinning grid barrier over blocks that are not all
 // resident hangs).  Zeroes the `bar_bytes` of barrier counters first.
-// Returns a cudaError_t.
+// Returns a cudaError_t; a failed call leaves no error behind for the
+// next launch's cudaGetLastError.
 template <typename Kernel>
 cudaError_t launch_persistent(Kernel kernel, int blocks, int threads,
                               size_t smem, void** args, unsigned int* bar,
@@ -122,21 +123,24 @@ cudaError_t launch_persistent(Kernel kernel, int blocks, int threads,
   if (!coop) return cudaErrorNotSupported;
   if (smem > static_cast<size_t>(max_smem))
     return cudaErrorInvalidConfiguration;
+  int per_sm = 0;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm * sms < blocks) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaMemsetAsync(bar, 0, bar_bytes, stream);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(blocks), dim3(threads), args, smem,
-                                    stream);
-  if (err != cudaSuccess) return err;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err == cudaSuccess && per_sm * sms < blocks)
+    err = cudaErrorCooperativeLaunchTooLarge;
+  if (err == cudaSuccess) err = cudaMemsetAsync(bar, 0, bar_bytes, stream);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                      dim3(blocks), dim3(threads), args,
+                                      smem, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
   return cudaGetLastError();
 }
 

@@ -222,8 +222,9 @@ def bilstm_projection_tmajor(xin_t, wx, b):
 
 
 def _recurrence_counters(device):
-    """The recurrence kernel's two arrival counters, one per direction,
-    each on its own 128-byte line (the kernel zeroes them)."""
+    """The persistent kernels' (recurrence and backward) two arrival
+    counters, one per direction, each on its own 128-byte line (the
+    kernel zeroes them)."""
     return torch.empty(64, dtype=torch.int32, device=device)
 
 
@@ -296,7 +297,10 @@ def dz_bwd_tmajor(a, c, gout, wh_cat):
     ``pallas_lstm._dz_bwd_tmajor``): dz (T, 2*Bp, 4F) float32, as
     :func:`dz_bwd_tmajor_plain`.  CUDA tensors launch the persistent
     backward kernel; the residuals may be float32 or bf16, and ``gout``
-    is rounded to their type."""
+    is rounded to their type.  The kernel takes every shape that
+    :func:`bilstm_recurrence_train_tmajor` takes (F a multiple of 16,
+    Bp <= 256 as far as shared memory and co-residency admit) and raises
+    :class:`dispatch.KernelError` beyond."""
     if not dispatch.use_kernel(a, c, gout, wh_cat):
         return dz_bwd_tmajor_plain(a, c, gout, wh_cat)
     T, R, G, F = _gates_shape(a, "a")
@@ -311,8 +315,10 @@ def dz_bwd_tmajor(a, c, gout, wh_cat):
     dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (2 * F, G))
     dev = a.device
     dz = torch.empty(T, R, G, dtype=torch.float32, device=dev)
-    dzbuf = torch.empty(2, R, G, dtype=torch.bfloat16, device=dev)
-    bar = torch.empty(1, dtype=torch.int32, device=dev)
+    # dz_{t+1} / dz_t in the kernel's chunk-major layout: 4F columns a
+    # row plus at most 2F of row padding.
+    dzbuf = torch.empty(2, R, 6 * F, dtype=torch.bfloat16, device=dev)
+    bar = _recurrence_counters(dev)
     BACKWARD(dev, a.data_ptr(), c.data_ptr(), gout.data_ptr(),
              wh_cat.data_ptr(), dz.data_ptr(), dzbuf.data_ptr(),
              bar.data_ptr(), T, R // 2, F, int(a.dtype == torch.bfloat16))

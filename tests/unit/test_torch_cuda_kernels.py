@@ -186,20 +186,46 @@ def test_train_recurrence_kernel(dev, T, B, F, res_bf16):
                                rtol=2 ** -8 if res_bf16 else 0, atol=tol)
 
 
-@pytest.mark.parametrize("T,B,F,res_bf16", [(37, 3, 128, False),
-                                            (19, 8, 256, True),
-                                            (64, 32, 512, False),
-                                            (48, 8, 512, True)])
-def test_backward_kernel_matches_plain(dev, T, B, F, res_bf16):
-    """dz of the reverse-time kernel against the plain backward on the
-    same residuals: float32 sums in another order; a dz at a bf16
-    rounding boundary feeds the next step one bf16 ulp apart."""
-    g = _gen(dev, 4)
+def _backward_inputs(dev, T, B, F, res_bf16, seed=4):
+    """Residuals of the plain training recurrence, an upstream cotangent
+    and Wh (bf16)."""
+    g = _gen(dev, seed)
     xp = 0.5 * torch.randn(T, 2 * B, 4 * F, generator=g, device=dev)
     wh = (torch.randn(2 * F, 4 * F, generator=g, device=dev)
           / F ** 0.5).to(torch.bfloat16)
     _, a, c = cuda_lstm.recurrence_train_tmajor_plain(xp, wh, res_bf16)
     gout = 0.1 * torch.randn(T, 2 * B, F, generator=g, device=dev)
+    return a, c, gout, wh
+
+
+# The backward kernel's edges: T = 1 (no barrier), Bp = 1 and 7 (a partly
+# filled m16 tile), 46 and 47 at F = 512 (the whole dz in the four ring
+# slots, then a ring refilled in 8 chunks), 64 and 65 (four tiles, then
+# one row more), 130, 192 at F = 512 and 256 at F = 256 (the most rows,
+# chunks of 64 columns); F = 64 (8 blocks a direction, 16-column k
+# steps shared by four warps), 80 (5 k steps a chunk) to 512.
+@pytest.mark.parametrize("T,B,F,res_bf16", [(37, 3, 128, False),
+                                            (19, 8, 256, True),
+                                            (64, 32, 512, False),
+                                            (48, 8, 512, True),
+                                            (1, 1, 64, False),
+                                            (1, 6, 512, True),
+                                            (25, 7, 64, True),
+                                            (8, 46, 512, False),
+                                            (8, 47, 512, True),
+                                            (16, 64, 256, False),
+                                            (16, 65, 128, True),
+                                            (10, 130, 512, False),
+                                            (10, 130, 64, True),
+                                            (6, 192, 512, True),
+                                            (6, 256, 256, False),
+                                            (9, 3, 80, False),
+                                            (12, 65, 80, True)])
+def test_backward_kernel_matches_plain(dev, T, B, F, res_bf16):
+    """dz of the reverse-time kernel against the plain backward on the
+    same residuals: float32 sums in another order; a dz at a bf16
+    rounding boundary feeds the next step one bf16 ulp apart."""
+    a, c, gout, wh = _backward_inputs(dev, T, B, F, res_bf16)
     before = cuda_lstm.BACKWARD.launches
     dz = cuda_lstm.dz_bwd_tmajor(a, c, gout, wh)
     assert cuda_lstm.BACKWARD.launches == before + 1
@@ -208,11 +234,58 @@ def test_backward_kernel_matches_plain(dev, T, B, F, res_bf16):
                                atol=1e-3 * max(1.0, ref.abs().max().item()))
 
 
-def test_layer_autograd_on_the_card_matches_plain_autograd(dev):
+@pytest.mark.parametrize("T,B,F", [(64, 32, 512), (10, 130, 64)])
+def test_backward_kernel_is_deterministic(dev, T, B, F):
+    """The warps' partial sums meet in a fixed order: two launches on the
+    same inputs give the same dz bit for bit."""
+    a, c, gout, wh = _backward_inputs(dev, T, B, F, False)
+    first = cuda_lstm.dz_bwd_tmajor(a, c, gout, wh)
+    assert torch.equal(first, cuda_lstm.dz_bwd_tmajor(a, c, gout, wh))
+
+
+def test_backward_accepts_every_shape_the_train_recurrence_accepts(dev):
+    """A shape that the training forward (K4) takes and the backward (K5)
+    refuses would stop training after its forward.  Over widths and row
+    counts around every limit of K4 (F % 16, shared memory at Bp = 192 /
+    256, co-residency at F = 528 / 1024, Bp <= 256), K5 launches wherever
+    K4 launches; both refuse F = 1024 and F % 16 != 0 with KernelError
+    and launch nothing."""
+    accepted, refused = [], {}
+    for F in (16, 64, 80, 100, 128, 256, 384, 448, 512, 528, 1024):
+        for B in (1, 128, 129, 192, 193, 256, 257):
+            xp = torch.zeros(1, 2 * B, 4 * F, device=dev)
+            wh = torch.zeros(2 * F, 4 * F, device=dev)
+            try:
+                _, a, c = cuda_lstm.bilstm_recurrence_train_tmajor(xp, wh)
+            except dispatch.KernelError as e:
+                refused[(B, F)] = str(e)
+                if F in (100, 1024):
+                    a = torch.zeros(1, 2 * B, 4 * F, device=dev)
+                    c = torch.zeros(1, 2 * B, F, device=dev)
+                    before = cuda_lstm.BACKWARD.launches
+                    with pytest.raises(dispatch.KernelError):
+                        cuda_lstm.dz_bwd_tmajor(a, c, torch.zeros_like(c),
+                                                wh)
+                    assert cuda_lstm.BACKWARD.launches == before
+                continue
+            assert F not in (100, 1024)
+            before = cuda_lstm.BACKWARD.launches
+            dz = cuda_lstm.dz_bwd_tmajor(a, c, torch.zeros_like(c), wh)
+            torch.cuda.synchronize()
+            assert cuda_lstm.BACKWARD.launches == before + 1
+            assert not dz.any()         # zero cotangent, zero dz
+            accepted.append((B, F))
+    for shape in ((192, 512), (256, 256)):
+        assert shape in accepted, refused.get(shape)
+
+
+@pytest.mark.parametrize("D,F", [(256, 256), (128, 64)])
+def test_layer_autograd_on_the_card_matches_plain_autograd(dev, D, F):
     """BiLSTMLayerFn (projection kernel, training recurrence, backward
     kernel, bf16 GEMMs) against autograd through the plain layer; bound
-    relative to each gradient's largest entry, as the CPU test."""
-    T, B, D, F = 24, 4, 256, 256
+    relative to each gradient's largest entry, as the CPU test.  F = 64
+    is the quality-pin recipe's width."""
+    T, B = 24, 4
     g = _gen(dev, 5)
     args = [torch.randn(T, 2 * B, D, generator=g, device=dev).to(
                 torch.bfloat16),

@@ -98,15 +98,22 @@ def test_train_layer_matches_pallas_interpret():
     torch.testing.assert_close(o * torch.tanh(c), h, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("res_bf16", [False, True])
-def test_dz_backward_matches_pallas_interpret(res_bf16):
+# (T, Bp, F): the module's shape, then the narrow widths the card's
+# backward kernel takes (F = 64 of the quality-pin recipe; F = 80, a
+# width that is not a multiple of 32, at Bp = 65 rows a direction).
+@pytest.mark.parametrize("T,Bp_,F_,res_bf16", [
+    (17, Bp, F, False), (17, Bp, F, True), (9, 3, 64, False),
+    (9, 3, 64, True), (7, 65, 80, False), (7, 65, 80, True)],
+    ids=["False", "True", "T9-Bp3-F64-False", "T9-Bp3-F64-True",
+         "T7-Bp65-F80-False", "T7-Bp65-F80-True"])
+def test_dz_backward_matches_pallas_interpret(T, Bp_, F_, res_bf16):
     """The plain reverse-time backward against ``_dz_bwd_tmajor`` on the
     same residuals and cotangent."""
-    T = 17
     rs = np.random.RandomState(2)
-    xp = jnp.asarray((rs.randn(T, 2 * Bp, 4 * F) * 0.3).astype(np.float32))
-    wh_cat = (rs.randn(2 * F, 4 * F) * 0.05).astype(np.float32)
-    gout = (rs.randn(T, 2 * Bp, F) * 0.1).astype(np.float32)
+    xp = jnp.asarray((rs.randn(T, 2 * Bp_, 4 * F_) * 0.3).astype(
+        np.float32))
+    wh_cat = (rs.randn(2 * F_, 4 * F_) * 0.05).astype(np.float32)
+    gout = (rs.randn(T, 2 * Bp_, F_) * 0.1).astype(np.float32)
     _, a, c = pallas_lstm._recurrence_train_tmajor(
         xp, jnp.asarray(wh_cat), res_bf16=res_bf16, interpret=True)
     ref = pallas_lstm._dz_bwd_tmajor(a, c, jnp.asarray(gout),
@@ -120,7 +127,8 @@ def test_dz_backward_matches_pallas_interpret(res_bf16):
     # Same inputs; dh is a float32 sum of exact bf16 products in another
     # order, so a dz at a bf16 rounding boundary may feed the next step
     # one bf16 ulp apart.  Measured 3.6e-6 (f32 residuals) and 6.9e-6
-    # (bf16) on |dz| up to 0.22.
+    # (bf16) on |dz| up to 0.22 at the module's shape; 2.6e-7 at F = 64
+    # and 9.6e-7 at F = 80 on |dz| up to 0.15 and 0.18.
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=3e-5)
 
