@@ -199,6 +199,9 @@ ORG_SP_VUV_DB_TOL = 0.05
 # vuv + bap = 23 channels) upsampled from 5 ms frames to 16 kHz.
 WN_LAYERS = 20
 WN_COND = 23
+# The WaveNetWrapper.Config default conditioning width (Cp = 64, the
+# largest layer blob, 3 layers a CTA in 227 KB of shared memory).
+WN_COND_WIDE = 63
 WN_HOP = FS // 200
 WN_T_CHECK = 2048
 WN_CHECK_BATCHES = (1, 16)
@@ -1261,90 +1264,25 @@ def wavenet_bound(w, T, B):
 
 def wavenet_kernel_checks(torch, device, layers=WN_LAYERS, T=WN_T_CHECK,
                           batches=WN_CHECK_BATCHES, t_time=WN_T_TIME,
-                          time_batches=WN_TIME_BATCHES, reps=2):
+                          time_batches=WN_TIME_BATCHES, reps=2,
+                          conds=(WN_COND, WN_COND_WIDE)):
     """The sampler kernel against its plain version over T steps at each
-    of ``batches``, then the kernel's time for ``t_time`` steps at each
-    of ``time_batches``.  Returns ({B: measurements at T}, {B: timing at
+    of ``batches`` and each conditioning width of ``conds``, then the
+    kernel's time for ``t_time`` steps at each of ``time_batches`` (at
+    the first width).  Returns ({B: measurements at T} for the first
+    width, with {"C=c,B=b": ...} for the others, {B: timing at
     t_time})."""
     from idiaptts_torch.ops import cuda_wavenet as cw
-    w = wavenet_model(torch, layers).to(device).sampler().weights
-    gen = torch.Generator(device=device).manual_seed(2024)
     out = {}
-    for B in batches:
-        shape = "T={},B={},L={},C={}".format(T, B, len(w.dilations), w.C)
-        cond = 0.3 * torch.randn(T, B, w.C, generator=gen, device=device)
-        teacher = torch.randint(0, 256, (T, B), generator=gen,
-                                device=device, dtype=torch.int32)
-        u = torch.rand(T, B, generator=gen, device=device)
-
-        # Forced mode: the logits for a random teacher signal.
-        _, lk = cw.sample(w, cond, forced=teacher, want_logits=True)
-        _, lp = cw.sample_plain(w, cond, forced=teacher, want_logits=True)
-        scale = lp.abs().max().item()
-        err = (lk - lp).abs().max().item()
-        _check("wavenet_sampler", err / scale, WN_TOL,
-               "forced logits {} (rel)".format(shape))
-
-        # Greedy: each sample is the first argmax of the logits the kernel
-        # gives for that history in forced mode.
-        greedy, _ = cw.sample(w, cond, temperature=0.0)
-        _, lg = cw.sample(w, cond, forced=greedy, want_logits=True)
-        if not torch.equal(greedy.long(), torch.argmax(lg, dim=-1)):
-            fail("wavenet_sampler greedy samples are not the argmax of its "
-                 "forced logits ({})".format(shape))
-        else:
-            log("  wavenet_sampler    greedy {}: every sample is the argmax "
-                "of the kernel's forced logits".format(shape))
-
-        # Free run, the same uniforms in both.  A draw may differ only
-        # where U lies near a CDF boundary: logits that differ by at most
-        # d move each boundary by less than exp(2 d) - 1 in probability.
-        sk, _ = cw.sample(w, cond, uniforms=u)
-        sp, plain_ms = timed_once(torch, lambda: cw.sample_plain(
-            w, cond, uniforms=u)[0])
-        ms = cuda_ms(torch, lambda: cw.sample(w, cond, uniforms=u), 3)
-        _, lk_hist = cw.sample(w, cond, forced=sk, want_logits=True)
-        _, lp_hist = cw.sample_plain(w, cond, forced=sk, want_logits=True)
-        d_hist = (lk_hist - lp_hist).abs().max().item()
-        _check("wavenet_sampler", d_hist / scale, WN_TOL,
-               "logits on the free run {} (rel)".format(shape))
-        tie = float(np.expm1(2.0 * max(d_hist, 1e-6)))
-        flat = lp_hist.reshape(T * B, -1)
-        redraw = cw.draw(flat, u.reshape(-1), 1.0, w.out_channels
-                         ).reshape(T, B)
-        margin = cw.cdf_margin(flat, u.reshape(-1)).reshape(T, B)
-        off = sk != redraw
-        worst = margin[off].max().item() if off.any() else 0.0
-        same_rows = int((sk == sp).all(dim=0).sum().item())
-        first = [int(torch.nonzero(sk[:, b] != sp[:, b])[0])
-                 for b in range(B) if not torch.equal(sk[:, b], sp[:, b])]
-        log("  wavenet_sampler    free run {}: {}/{} rows identical to the "
-            "plain run (first divergence at steps {}); {} of {} kernel draws "
-            "differ from the plain draw on the same history, largest CDF "
-            "margin among them {:.3e} (tol {:.3e}); smallest margin over "
-            "all draws {:.3e}; {} distinct classes".format(
-                shape, same_rows, B, first, int(off.sum()), T * B, worst,
-                tie, margin.min().item(), len(torch.unique(sk))))
-        if worst > tie:
-            fail("wavenet_sampler free run {}: a draw differs from the plain "
-                 "draw at CDF margin {:.3e} > {:.3e}".format(shape, worst,
-                                                             tie))
-        if len(torch.unique(sk)) < 16:
-            fail("wavenet_sampler free run {}: only {} distinct classes"
-                 .format(shape, len(torch.unique(sk))))
-        bound_ms, bound_by = wavenet_bound(w, T, B)
-        out[B] = dict(shape=shape, max_abs_err=err, logits_scale=scale,
-                      ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, library_ms=None,
-                      free_run_rows_identical=same_rows,
-                      free_run_draws_off=int(off.sum()),
-                      free_run_worst_margin=worst)
-        log("  wavenet_sampler    {}: kernel {:.3f} ms ({:.2f} us/step) | "
-            "plain {:.1f} ms ({:.3f} ms/step) | bound {:.5f} ms ({})".format(
-                shape, ms, ms * 1e3 / T, plain_ms, plain_ms / T, bound_ms,
-                bound_by))
-        del lk, lp, lg, lk_hist, lp_hist
-
+    for C in conds:
+        w = wavenet_model(torch, layers, C).to(device).sampler().weights
+        for B in batches:
+            key = B if C == conds[0] else "C={},B={}".format(C, B)
+            out[key] = _wavenet_check(torch, device, cw, w, T, B)
+        if C != conds[0]:
+            del w
+    w = wavenet_model(torch, layers, conds[0]).to(device).sampler().weights
+    gen = torch.Generator(device=device).manual_seed(2025)
     timing = {}
     for B in time_batches:
         cond = 0.3 * torch.randn(t_time, B, w.C, generator=gen,
@@ -1353,15 +1291,113 @@ def wavenet_kernel_checks(torch, device, layers=WN_LAYERS, T=WN_T_CHECK,
         ms = cuda_ms(torch, lambda: cw.sample(w, cond, uniforms=u), reps)
         bound_ms, bound_by = wavenet_bound(w, t_time, B)
         audio_s = B * t_time / FS
+        plan = cw.launch_plan(w, B)
         timing[B] = dict(T=t_time, ms=ms, us_per_step=ms * 1e3 / t_time,
                          xrt=audio_s / (ms / 1e3), bound_ms=bound_ms,
-                         bound_by=bound_by)
+                         bound_by=bound_by, plan=plan)
         log("  wavenet_sampler    T={} B={:<3d}: {:9.3f} ms = {:.2f} us/step"
-            " = {:.1f}x realtime | bound {:.5f} ms ({}) [plain version not "
-            "timed at this T]".format(t_time, B, ms, ms * 1e3 / t_time,
-                                      timing[B]["xrt"], bound_ms, bound_by))
+            " = {:.1f}x realtime | bound {:.5f} ms ({}) | cluster of {} "
+            "CTAs, G={} row groups a cluster, {} clusters launched, {} "
+            "clusters can be resident [plain version not timed at this "
+            "T]".format(t_time, B, ms, ms * 1e3 / t_time, timing[B]["xrt"],
+                        bound_ms, bound_by, plan["cluster"], plan["G"],
+                        plan["clusters"], plan["active_clusters"]))
+        if plan["clusters"] > plan["active_clusters"]:
+            fail("wavenet_sampler B={}: {} clusters launched, only {} "
+                 "resident: a second wave".format(
+                     B, plan["clusters"], plan["active_clusters"]))
         del cond, u
     return out, timing
+
+
+def _wavenet_check(torch, device, cw, w, T, B):
+    """One (C, B) of the sampler checks: forced logits, greedy, the free
+    run against the plain version, and two launches bit for bit."""
+    gen = torch.Generator(device=device).manual_seed(2024 + B + w.C)
+    shape = "T={},B={},L={},C={}".format(T, B, len(w.dilations), w.C)
+    plan = cw.launch_plan(w, B)
+    log("  wavenet_sampler    {}: cluster of {} CTAs (layers {}), G={}, "
+        "{} clusters launched, {} can be resident".format(
+            shape, plan["cluster"], w.kernel_args()[5].part, plan["G"],
+            plan["clusters"], plan["active_clusters"]))
+    cond = 0.3 * torch.randn(T, B, w.C, generator=gen, device=device)
+    teacher = torch.randint(0, 256, (T, B), generator=gen,
+                            device=device, dtype=torch.int32)
+    u = torch.rand(T, B, generator=gen, device=device)
+
+    # Forced mode: the logits for a random teacher signal.
+    _, lk = cw.sample(w, cond, forced=teacher, want_logits=True)
+    _, lp = cw.sample_plain(w, cond, forced=teacher, want_logits=True)
+    scale = lp.abs().max().item()
+    err = (lk - lp).abs().max().item()
+    _check("wavenet_sampler", err / scale, WN_TOL,
+           "forced logits {} (rel)".format(shape))
+
+    # Greedy: each sample is the first argmax of the logits the kernel
+    # gives for that history in forced mode.
+    greedy, _ = cw.sample(w, cond, temperature=0.0)
+    _, lg = cw.sample(w, cond, forced=greedy, want_logits=True)
+    if not torch.equal(greedy.long(), torch.argmax(lg, dim=-1)):
+        fail("wavenet_sampler greedy samples are not the argmax of its "
+             "forced logits ({})".format(shape))
+    else:
+        log("  wavenet_sampler    greedy {}: every sample is the argmax "
+            "of the kernel's forced logits".format(shape))
+
+    # Free run, the same uniforms in both.  A draw may differ only
+    # where U lies near a CDF boundary: logits that differ by at most
+    # d move each boundary by less than exp(2 d) - 1 in probability.
+    sk, _ = cw.sample(w, cond, uniforms=u)
+    again, _ = cw.sample(w, cond, uniforms=u)
+    if not torch.equal(sk, again):
+        fail("wavenet_sampler free run {}: two launches on the same "
+             "uniforms differ".format(shape))
+    else:
+        log("  wavenet_sampler    free run {}: two launches on the same "
+            "uniforms are equal".format(shape))
+    sp, plain_ms = timed_once(torch, lambda: cw.sample_plain(
+        w, cond, uniforms=u)[0])
+    ms = cuda_ms(torch, lambda: cw.sample(w, cond, uniforms=u), 3)
+    _, lk_hist = cw.sample(w, cond, forced=sk, want_logits=True)
+    _, lp_hist = cw.sample_plain(w, cond, forced=sk, want_logits=True)
+    d_hist = (lk_hist - lp_hist).abs().max().item()
+    _check("wavenet_sampler", d_hist / scale, WN_TOL,
+           "logits on the free run {} (rel)".format(shape))
+    tie = float(np.expm1(2.0 * max(d_hist, 1e-6)))
+    flat = lp_hist.reshape(T * B, -1)
+    redraw = cw.draw(flat, u.reshape(-1), 1.0, w.out_channels
+                     ).reshape(T, B)
+    margin = cw.cdf_margin(flat, u.reshape(-1)).reshape(T, B)
+    off = sk != redraw
+    worst = margin[off].max().item() if off.any() else 0.0
+    same_rows = int((sk == sp).all(dim=0).sum().item())
+    first = [int(torch.nonzero(sk[:, b] != sp[:, b])[0])
+             for b in range(B) if not torch.equal(sk[:, b], sp[:, b])]
+    log("  wavenet_sampler    free run {}: {}/{} rows identical to the "
+        "plain run (first divergence at steps {}); {} of {} kernel draws "
+        "differ from the plain draw on the same history, largest CDF "
+        "margin among them {:.3e} (tol {:.3e}); smallest margin over "
+        "all draws {:.3e}; {} distinct classes".format(
+            shape, same_rows, B, first, int(off.sum()), T * B, worst,
+            tie, margin.min().item(), len(torch.unique(sk))))
+    if worst > tie:
+        fail("wavenet_sampler free run {}: a draw differs from the plain "
+             "draw at CDF margin {:.3e} > {:.3e}".format(shape, worst,
+                                                         tie))
+    if len(torch.unique(sk)) < 16:
+        fail("wavenet_sampler free run {}: only {} distinct classes"
+             .format(shape, len(torch.unique(sk))))
+    bound_ms, bound_by = wavenet_bound(w, T, B)
+    log("  wavenet_sampler    {}: kernel {:.3f} ms ({:.2f} us/step) | "
+        "plain {:.1f} ms ({:.3f} ms/step) | bound {:.5f} ms ({})".format(
+            shape, ms, ms * 1e3 / T, plain_ms, plain_ms / T, bound_ms,
+            bound_by))
+    return dict(shape=shape, max_abs_err=err, logits_scale=scale,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, plan=plan,
+                free_run_rows_identical=same_rows,
+                free_run_draws_off=int(off.sum()),
+                free_run_worst_margin=worst)
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -1953,7 +1989,8 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
     torch.cuda.empty_cache()
 
     log("== phase 7: WaveNet sampler kernel against its plain version, "
-        "{} layers, C={} [{}]".format(WN_LAYERS, WN_COND, card))
+        "{} layers, C={} and {} [{}]".format(WN_LAYERS, WN_COND, WN_COND_WIDE,
+                                              card))
     wres, wtime = wavenet_kernel_checks(torch, device)
     torch.cuda.empty_cache()
 
@@ -2011,6 +2048,8 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
             entry["also_replaces"] = "idiaptts_tpu/ops/pallas_lstm.py:742"
         if name == "wavenet_sampler":
             entry["one_second_of_audio"] = wtime
+            entry["wide_cond"] = {k: v for k, v in wres.items()
+                                  if isinstance(k, str)}
             entry["vocode_path"] = vstats
         if name == "mlpg_oneshot":
             entry["evaluate_path"] = estats

@@ -36,8 +36,11 @@ The uniforms are an input drawn by the caller from a
 
 The kernel is built for the production widths (residual = skip = gate/2
 = 64 channels, kernel size 2, 256 classes); any conditioning width up to
-64 and any number of layers and dilations.  The plain version takes any
-widths.
+64, any dilations, and up to ``MAX_LAYERS`` (45) layers: the weights
+stay in the shared memory of one thread-block cluster, at most 3 layers
+a CTA (:class:`ClusterPlan`).  Beyond, a CUDA launch raises
+:class:`~idiaptts_torch.ops.dispatch.KernelError`.  The plain version
+takes any widths and depth.
 """
 
 import ctypes
@@ -48,18 +51,26 @@ import torch
 from idiaptts_torch.ops import dispatch
 
 CLASSES = 256
-# Batch rows per block of the kernel (one m16 tensor-core tile).
+# Batch rows of one row group of the kernel (one m16 tensor-core tile).
 ROWS = 16
 # The widths the kernel is built for (residual, gate half, skip).
 KERNEL_WIDTH = 64
 KERNEL_MAX_COND = 64
+# The kernel's thread-block cluster: CTAs 0..NC-2 hold at most
+# LAYERS_PER_CTA layers' weights each, CTA NC-1 the output layers.
+CLUSTER_SIZES = (2, 4, 8, 16)
+LAYERS_PER_CTA = 3
+MAX_LAYERS = (CLUSTER_SIZES[-1] - 1) * LAYERS_PER_CTA
+# Shared memory a CTA may use on the card (227 KB).
+SMEM_LIMIT = 232448
 INV_SQRT2 = float(np.float32(1.0 / np.sqrt(2.0)))
 _NEG = -1e30
 MODE_SAMPLE, MODE_GREEDY, MODE_FORCED = 0, 1, 2
 
 SAMPLER = dispatch.Kernel(
     "wavenet_sampler", "idt_wavenet_sampler",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float])
+    [ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_int)]
+    + [ctypes.c_int] * 10 + [ctypes.c_float])
 
 
 class SamplerWeights:
@@ -96,8 +107,8 @@ class SamplerWeights:
         return self.embed.device
 
     def kernel_args(self):
-        """(layer blob, post blob, dilations, offsets, padded cond width)
-        on the weights' device, made once."""
+        """(layer blob, post blob, dilations, offsets, padded cond width,
+        :class:`ClusterPlan`) on the weights' device, made once."""
         if self._kernel_args is None:
             self._kernel_args = _pack_kernel_blobs(self)
         return self._kernel_args
@@ -243,6 +254,53 @@ def _bytes(t):
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
+# Shared-memory sizes of csrc/wavenet_sampler.cu (bytes): a padded
+# 16 x 72 bf16 tile, the float32 x/skip inbox, the post blob and the
+# embedding table.
+_TILE = ROWS * (KERNEL_WIDTH + 8) * 2
+_INBOX = 2 * ROWS * (KERNEL_WIDTH + 8) * 4
+_POST = (KERNEL_WIDTH * KERNEL_WIDTH * 2 + 2 * KERNEL_WIDTH * CLASSES * 2
+         + KERNEL_WIDTH * 4 + CLASSES * 4)
+_EMBED = CLASSES * KERNEL_WIDTH * 2
+_BARRIERS = 32
+
+
+def layer_blob_bytes(Cp):
+    """Bytes of one layer's blob: the gate and [skip | res] fragments and
+    both biases."""
+    R = KERNEL_WIDTH
+    return (2 * R + Cp) * 2 * R * 2 + R * 2 * R * 2 + 2 * R * 4 + 2 * R * 4
+
+
+class ClusterPlan:
+    """How the kernel spreads L layers over a thread-block cluster of
+    ``NC`` CTAs: CTA k < NC - 1 holds layers ``part[k]`` to
+    ``part[k + 1] - 1`` (their blob starts at byte ``offsets[k]`` of the
+    layer blob), CTA NC - 1 the output layers and the embedding;
+    ``cta_bytes[k]`` is CTA k's shared memory."""
+
+    def __init__(self, L, Cp):
+        if not 1 <= L <= MAX_LAYERS:
+            raise dispatch.KernelError(
+                "the wavenet_sampler kernel holds at most {} layers ({} "
+                "CTAs of a {}-CTA cluster x {} layers), got {}".format(
+                    MAX_LAYERS, CLUSTER_SIZES[-1] - 1, CLUSTER_SIZES[-1],
+                    LAYERS_PER_CTA, L))
+        self.NC = next(n for n in CLUSTER_SIZES
+                       if L <= (n - 1) * LAYERS_PER_CTA)
+        base, extra = divmod(L, self.NC - 1)
+        counts = [base + (k < extra) for k in range(self.NC - 1)]
+        self.part = tuple(int(v) for v in np.cumsum([0] + counts))
+        self.counts = tuple(counts)
+        self.offsets = tuple(p * layer_blob_bytes(Cp)
+                             for p in self.part[:-1])
+        self.cta_bytes = tuple(
+            [n * (layer_blob_bytes(Cp) + 3 * _TILE) + _INBOX
+             + ROWS * (Cp + 8) * 2 + _BARRIERS for n in counts]
+            + [_POST + _EMBED + _INBOX + 3 * _TILE
+               + ROWS * (CLASSES + 8) * 4 + ROWS * 4 + _BARRIERS])
+
+
 def _pack_kernel_blobs(w):
     if not (w.R == w.Ca == w.S == KERNEL_WIDTH):
         raise ValueError(
@@ -255,24 +313,59 @@ def _pack_kernel_blobs(w):
                              KERNEL_MAX_COND, w.C))
     L = len(w.dilations)
     Cp = -(-w.C // 16) * 16
+    plan = ClusterPlan(L, Cp)
     w1 = torch.zeros(L, 2 * w.R + Cp, 2 * w.Ca, dtype=torch.bfloat16,
                      device=w.device)
     w1[:, :2 * w.R + w.C] = w.w1
     layers = torch.stack([torch.cat([
         _bytes(_fragments(w1[j])), _bytes(_fragments(w.w2[j])),
         _bytes(w.b1[j]), _bytes(w.b2[j])]) for j in range(L)])
-    post = torch.cat([_bytes(_fragments(w.p1)), _bytes(w.p1b),
-                      _bytes(w.p2), _bytes(w.p2b)])
+    # post2 in float32 as two bf16 parts: P2 = hi + lo to ~2^-16.
+    p2hi = w.p2.to(torch.bfloat16)
+    p2lo = (w.p2 - p2hi.to(torch.float32)).to(torch.bfloat16)
+    post = torch.cat([_bytes(_fragments(w.p1)), _bytes(_fragments(p2hi)),
+                      _bytes(_fragments(p2lo)), _bytes(w.p1b),
+                      _bytes(w.p2b)])
     dil = torch.tensor(w.dilations, dtype=torch.int32, device=w.device)
     offs = torch.tensor(w.offsets, dtype=torch.int32, device=w.device)
-    return layers.contiguous(), post.contiguous(), dil, offs, Cp
+    return layers.contiguous(), post.contiguous(), dil, offs, Cp, plan
+
+
+_plans = {}
+
+
+def launch_plan(w, B):
+    """The kernel's launch for B rows with weights ``w`` (on the card):
+    {"cluster": CTAs a cluster, "G": row groups a cluster carries,
+    "active_clusters": clusters that can be resident at once,
+    "clusters": clusters launched}."""
+    _, _, _, _, Cp, plan = w.kernel_args()
+    Bp = -(-B // ROWS) * ROWS
+    key = (w.device, Bp, Cp, plan.NC, max(plan.counts))
+    if key not in _plans:
+        fn = dispatch.library().idt_wavenet_sampler_plan
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(w.device):
+            err = fn(Bp, Cp, plan.NC, max(plan.counts), out)
+        if err:
+            raise dispatch.KernelError(
+                "wavenet_sampler: no launch plan for Bp={} on clusters of "
+                "{}: {} (cuda error {})".format(
+                    Bp, plan.NC,
+                    dispatch.library().idt_error_string(err).decode(), err))
+        _plans[key] = {"cluster": plan.NC, "G": out[1],
+                       "active_clusters": out[0], "clusters": out[2]}
+    return _plans[key]
 
 
 def sample(w, cond, uniforms=None, forced=None, temperature=1.0,
            want_logits=False):
     """The sampler: :func:`sample_plain`'s arguments and results.  CPU
     tensors take the plain version; CUDA tensors launch the hand kernel
-    once for all T steps (batch padded to a multiple of 16 rows)."""
+    once for all T steps (batch padded to a multiple of 16 rows, G row
+    groups a cluster from :func:`launch_plan`)."""
     tensors = [cond, w.embed] + [t for t in (uniforms, forced)
                                  if t is not None]
     if not dispatch.use_kernel(*tensors):
@@ -290,7 +383,7 @@ def sample(w, cond, uniforms=None, forced=None, temperature=1.0,
         mode = MODE_SAMPLE
     else:
         mode = MODE_GREEDY
-    layers, post, dil, offs, Cp = w.kernel_args()
+    layers, post, dil, offs, Cp, plan = w.kernel_args()
     dev = cond.device
     Bp = -(-B // ROWS) * ROWS
     samples = torch.empty(T, Bp, dtype=torch.int32, device=dev)
@@ -298,6 +391,7 @@ def sample(w, cond, uniforms=None, forced=None, temperature=1.0,
               else None)
     if T == 0:
         return samples[:, :B], None if logits is None else logits[:, :B]
+    G = launch_plan(w, B)["G"]
     cond_k = torch.zeros(T, Bp, Cp, dtype=torch.bfloat16, device=dev)
     cond_k[:, :B, :C] = cond
     u_k = torch.zeros(T, Bp, device=dev)
@@ -320,7 +414,8 @@ def sample(w, cond, uniforms=None, forced=None, temperature=1.0,
             layers.data_ptr(), post.data_ptr(), dil.data_ptr(),
             offs.data_ptr(), ring.data_ptr(), samples.data_ptr(),
             0 if logits is None else logits.data_ptr(),
-            T, Bp, Cp, len(w.dilations), w.out_channels, mode,
+            (ctypes.c_int * plan.NC)(*plan.part),
+            T, B, Bp, Cp, len(w.dilations), plan.NC, G, w.out_channels, mode,
             int(want_logits), float(temperature))
     return samples[:, :B], None if logits is None else logits[:, :B]
 

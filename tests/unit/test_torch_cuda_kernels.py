@@ -314,7 +314,8 @@ def _wavenet(dev, layers=4, C=23, out_channels=256, seed=0):
     cfg = WaveNetWrapper.Config(input_names=("cond",),
                                 output_names=("logits",),
                                 out_channels=out_channels,
-                                num_layers=layers, num_stacks=2,
+                                num_layers=layers,
+                                num_stacks=min(2, layers),
                                 cond_channels=C)
     model = cfg.create_model(torch.Generator().manual_seed(seed)).to(dev)
     return model.sampler().weights
@@ -329,8 +330,13 @@ def _wavenet_inputs(dev, T, B, C=23, seed=0):
     return cond, forced, uniforms
 
 
-@pytest.mark.parametrize("T,B,layers,C", [(1, 1, 2, 23), (70, 3, 4, 23),
-                                          (200, 17, 6, 63), (40, 33, 4, 9)])
+# Layers: 1 (a 2-CTA cluster), 4, 20 (the default), 21 (the most an
+# 8-CTA cluster holds), 22 (the first that needs 16 CTAs), 45 (the
+# limit); conditioning widths at Cp = 16, 32 and 64; B = 1, 17, 33.
+@pytest.mark.parametrize("T,B,layers,C", [
+    (1, 1, 2, 23), (70, 3, 4, 23), (200, 17, 6, 63), (40, 33, 4, 9),
+    (50, 1, 1, 23), (60, 16, 20, 23), (40, 17, 21, 16), (40, 33, 22, 63),
+    (24, 5, 45, 63), (30, 1, 20, 63), (30, 17, 4, 16)])
 def test_wavenet_forced_logits_match_plain(dev, T, B, layers, C):
     w = _wavenet(dev, layers, C)
     cond, forced, _ = _wavenet_inputs(dev, T, B, C)
@@ -381,6 +387,83 @@ def test_wavenet_never_draws_a_padding_class(dev):
     assert int(s.max()) <= 199
     low, _ = cuda_wavenet.sample(w, cond, uniforms=torch.zeros_like(top))
     assert int(low.min()) == 0
+
+
+def test_wavenet_kernel_refuses_past_its_layer_limit(dev):
+    w = _wavenet(dev, layers=cuda_wavenet.MAX_LAYERS + 1)
+    with pytest.raises(dispatch.KernelError, match="at most 45 layers"):
+        cuda_wavenet.sample(w, torch.zeros(3, 1, 23, device=dev),
+                            temperature=0.0)
+    # The plain version, on the CPU, takes any depth.
+    cpu = _wavenet(torch.device("cpu"), layers=cuda_wavenet.MAX_LAYERS + 1)
+    s, _ = cuda_wavenet.sample(cpu, torch.zeros(3, 1, 23), temperature=0.0)
+    assert s.shape == (3, 1)
+
+
+def test_wavenet_batch_of_256_runs_in_one_wave_with_groups_in_flight(dev):
+    """At the default depth, B = 256 launches no more clusters than can
+    be resident; a batch of one row group more than the resident
+    clusters carry one each runs with G = 2 row groups a cluster, and
+    its logits hold against the plain version."""
+    w = _wavenet(dev, layers=20)
+    plan = cuda_wavenet.launch_plan(w, 256)
+    assert plan["cluster"] == 8
+    assert plan["clusters"] <= plan["active_clusters"]
+    assert plan["G"] * plan["clusters"] * 16 >= 256
+    B = 16 * (plan["active_clusters"] + 1)
+    plan = cuda_wavenet.launch_plan(w, B)
+    assert plan["G"] == 2 and plan["clusters"] <= plan["active_clusters"]
+    cond, forced, _ = _wavenet_inputs(dev, 12, B)
+    _, logits = cuda_wavenet.sample(w, cond, forced=forced,
+                                    want_logits=True)
+    _, ref = cuda_wavenet.sample_plain(w, cond, forced=forced,
+                                       want_logits=True)
+    torch.testing.assert_close(logits, ref, rtol=0, atol=WAVENET_TOL
+                               * ref.abs().max().item())
+
+
+def test_wavenet_row_groups_in_flight_give_the_same_draws(dev):
+    """Rows are independent: the first 16 rows of a batch that the launch
+    carries as G = 2 row groups a cluster draw bit for bit what the same
+    16 rows draw alone (one group, one cluster)."""
+    w = _wavenet(dev, layers=20)
+    B = 16 * (cuda_wavenet.launch_plan(w, 16)["active_clusters"] + 1)
+    assert cuda_wavenet.launch_plan(w, B)["G"] == 2
+    cond, _, u = _wavenet_inputs(dev, 60, B)
+    many, _ = cuda_wavenet.sample(w, cond, uniforms=u)
+    one, _ = cuda_wavenet.sample(w, cond[:, :16].contiguous(),
+                                 uniforms=u[:, :16].contiguous())
+    assert torch.equal(one, many[:, :16])
+
+
+def test_wavenet_two_launches_are_identical(dev):
+    w = _wavenet(dev, layers=20, C=63)
+    cond, _, u = _wavenet_inputs(dev, 80, 17, C=63)
+    a, _ = cuda_wavenet.sample(w, cond, uniforms=u)
+    b, _ = cuda_wavenet.sample(w, cond, uniforms=u)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("temperature", [0.6, 1.5])
+def test_wavenet_free_run_at_a_temperature_matches_plain(dev, temperature):
+    """As the free run at temperature 1: the kernel's draws are the plain
+    draws at this temperature from the plain logits on the kernel's own
+    history, except where U lies within the logits tolerance (scaled by
+    1 / temperature) of a CDF boundary."""
+    w = _wavenet(dev, layers=20, seed=7)
+    T, B = 100, 17
+    cond, _, u = _wavenet_inputs(dev, T, B, seed=7)
+    s, _ = cuda_wavenet.sample(w, cond, uniforms=u, temperature=temperature)
+    _, ref_logits = cuda_wavenet.sample_plain(w, cond, forced=s,
+                                              want_logits=True)
+    tol = 2 * WAVENET_TOL * ref_logits.abs().max().item() / temperature
+    flat = ref_logits.reshape(T * B, -1)
+    ref = cuda_wavenet.draw(flat, u.reshape(-1), temperature,
+                            256).reshape(T, B)
+    margin = cuda_wavenet.cdf_margin(flat, u.reshape(-1),
+                                     temperature).reshape(T, B)
+    assert torch.all((s == ref) | (margin <= tol))
+    assert len(torch.unique(s)) > 5
 
 
 def test_wavenet_kernel_refuses_unsupported_width(dev):

@@ -25,7 +25,7 @@ from idiaptts_torch.models.convert import (flax_to_state_dict,
                                            state_dict_to_flax)
 from idiaptts_torch.models.wavenet import (WaveNetVocoder, WaveNetWrapper,
                                            generate)
-from idiaptts_torch.ops import audio_io, cuda_wavenet
+from idiaptts_torch.ops import audio_io, cuda_wavenet, dispatch
 from idiaptts_torch.ops import mulaw as torch_mulaw
 from idiaptts_torch.ops.interpolation import sample_linearly
 from idiaptts_torch.synth.synthesiser import Synthesiser
@@ -277,10 +277,10 @@ def test_sampler_repacks_when_weights_change():
 def test_kernel_blobs_hold_the_weights_in_fragment_order():
     """The CUDA kernel's view of its weight blobs (offsets and mma
     B-fragment indexing as in csrc/wavenet_sampler.cu) gives back the
-    plain layout."""
+    plain layout; post2's two bf16 parts add up to the float32 P2."""
     _, _, params, _, _ = _jax_setup()
     w = _port_model(params).sampler().weights
-    layers, post, dil, offs, Cp = w.kernel_args()
+    layers, post, dil, offs, Cp, plan = w.kernel_args()
     R = Ca = S = 64
     K1 = 2 * R + Cp
 
@@ -297,6 +297,7 @@ def test_kernel_blobs_hold_the_weights_in_fragment_order():
 
     gate_bytes, sr_bytes = K1 * 2 * Ca * 2, Ca * (S + R) * 2
     assert layers.shape == (LAYERS, gate_bytes + sr_bytes + 2 * 128 * 4)
+    assert layers.shape[1] == cuda_wavenet.layer_blob_bytes(Cp)
     for j in range(LAYERS):
         blob = layers[j]
         w1 = unfragment(blob[:gate_bytes], K1, 2 * Ca)
@@ -307,15 +308,52 @@ def test_kernel_blobs_hold_the_weights_in_fragment_order():
         tail = blob[gate_bytes + sr_bytes:].view(torch.float32)
         torch.testing.assert_close(tail[:128], w.b1[j], rtol=0, atol=0)
         torch.testing.assert_close(tail[128:], w.b2[j], rtol=0, atol=0)
-    p1 = unfragment(post[:S * S * 2], S, S)
+    p1_bytes, p2_bytes = S * S * 2, S * 256 * 2
+    p1 = unfragment(post[:p1_bytes], S, S)
     torch.testing.assert_close(p1, w.p1, rtol=0, atol=0)
-    rest = post[S * S * 2:].view(torch.float32)
+    hi = unfragment(post[p1_bytes:p1_bytes + p2_bytes], S, 256)
+    lo = unfragment(post[p1_bytes + p2_bytes:p1_bytes + 2 * p2_bytes], S,
+                    256)
+    torch.testing.assert_close(hi, w.p2.to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(hi.float() + lo.float(), w.p2, rtol=2.0 ** -16,
+                               atol=0)
+    rest = post[p1_bytes + 2 * p2_bytes:].view(torch.float32)
     torch.testing.assert_close(rest[:S], w.p1b, rtol=0, atol=0)
-    torch.testing.assert_close(rest[S:S + S * 256].reshape(S, 256), w.p2,
-                               rtol=0, atol=0)
-    torch.testing.assert_close(rest[S + S * 256:], w.p2b, rtol=0, atol=0)
+    torch.testing.assert_close(rest[S:], w.p2b, rtol=0, atol=0)
     assert dil.tolist() == [1, 2, 1, 2]
     assert offs.tolist() == [0, 2, 5, 7] and w.slots == 10
+    assert plan.NC == 4 and plan.part == (0, 2, 3, 4)
+
+
+@pytest.mark.parametrize("L,NC", [(1, 2), (3, 2), (4, 4), (9, 4), (10, 8),
+                                  (20, 8), (21, 8), (22, 16), (24, 16),
+                                  (30, 16), (45, 16)])
+@pytest.mark.parametrize("Cp", [16, 32, 64])
+def test_cluster_plan_holds_every_layer_within_shared_memory(L, NC, Cp):
+    """The partition of layers over the cluster's CTAs: contiguous runs
+    of 1 to 3 layers over CTAs 0..NC-2, in order, covering every layer
+    once; each CTA's blob offset is its first layer's; and every CTA's
+    shared memory stays within the card's 227 KB."""
+    plan = cuda_wavenet.ClusterPlan(L, Cp)
+    assert plan.NC == NC and plan.NC in cuda_wavenet.CLUSTER_SIZES
+    assert len(plan.part) == NC and plan.part[0] == 0 and plan.part[-1] == L
+    counts = np.diff(plan.part)
+    assert counts.min() >= 1 and counts.max() <= cuda_wavenet.LAYERS_PER_CTA
+    assert counts.max() - counts.min() <= 1
+    WL = cuda_wavenet.layer_blob_bytes(Cp)
+    assert plan.offsets == tuple(p * WL for p in plan.part[:-1])
+    assert all(o % 16 == 0 for o in plan.offsets)
+    assert len(plan.cta_bytes) == NC
+    assert max(plan.cta_bytes) <= cuda_wavenet.SMEM_LIMIT
+    # The smaller cluster would not hold L layers.
+    smaller = [n for n in cuda_wavenet.CLUSTER_SIZES if n < NC]
+    if smaller:
+        assert L > (smaller[-1] - 1) * cuda_wavenet.LAYERS_PER_CTA
+
+
+def test_cluster_plan_refuses_past_its_limit():
+    with pytest.raises(dispatch.KernelError, match="at most 45 layers"):
+        cuda_wavenet.ClusterPlan(cuda_wavenet.MAX_LAYERS + 1, 64)
 
 
 def _write_checkpoint(directory, model, config_json=None):
