@@ -19,7 +19,12 @@ other error raises at once):
    the PyTorch library call that computes the same function (K2: the
    dense ``torch.cholesky_solve``; the projection: a bf16 ``torch.bmm``,
    with the kernel's TFLOP/s and share of its bound; the recurrence:
-   cuDNN's LSTM, and its µs a step).  The projection also at ragged
+   cuDNN's LSTM, and its µs a step).  K2 as the served MLPG stage
+   launches it (``mlpg_served``: the model output's window means through
+   the pipeline's column map, b assembled in the kernel), with its µs a
+   sequential step, also at T = 2048, B = 48 (``SOLVE_LONG``), past a
+   block's 4096 rows (``SOLVE_SUPER``), at T = 1, 2, 3 (``SOLVE_SHORT``),
+   and in its lane-wise mode (``solve_banded``).  The projection also at ragged
    shapes (``PROJ_RAGGED``); the recurrence also at the narrow width
    F = 64 (``NARROW``, B = 6).
 4. The serving path at full width: the Interspeech'18 acoustic model
@@ -32,7 +37,7 @@ other error raises at once):
    launched.  The card's result is held against the port's CPU path on
    one utterance, then the slice is timed (label -> waveform xRT at
    B = 6 and B = 48, per-stage ms, and the device split of one batch
-   from torch.profiler).
+   from torch.profiler, with K2's share of the device time).
 5. The training kernels against their plain versions at the training
    benchmark's shapes (T = 1024, D = 1024, F = 512, B = 8, 32 and 64):
    the training recurrence's h bit-identical to the inference kernel's,
@@ -73,9 +78,11 @@ other error raises at once):
    files of the right length, finite and not constant.  One utterance's
    first 800 samples in forced mode against the port's CPU path.
 9. The trainer's evaluation and WORLD synthesis path.  (a) The one-shot
-   MLPG kernel (K1) against its plain version on systems assembled on
-   the card from seeded window means and variances, at T = 512 with
-   L = 20 and 1 lanes, T = 2048 with L = 60 and T = 1, 2, 3 with L = 20;
+   MLPG kernel (K1) against its plain version as ``MLPG.generation``
+   launches it (``mlpg_utterance``: seeded window means and variances
+   in, the system assembled in the kernel) and on the system assembled
+   on the card outside it (``mlpg_oneshot``), at T = 512 with L = 20
+   and 1 lanes, T = 2048 with L = 60 and T = 1, 2, 3 with L = 20;
    CUDA-event times beside the dense library solve (``torch.linalg.
    cholesky`` and ``torch.cholesky_solve`` on the (L, T, T) matrices).
    (b) Phase 6's trained ``AcousticModelTrainer`` on ``cuda``, launch
@@ -135,6 +142,14 @@ REC_TOL = 5e-3
 # (a half-empty column tile); and D = 409, the question width, padded
 # along K to 416.
 PROJ_RAGGED = ((37, 7, 1000, 96), (50, 6, 409, 128))
+# K2 (served MLPG) also at the longest bucket the card tests hold (T, B).
+SOLVE_LONG = (2048, 48)
+# K2 past the 4096 rows a block holds, as a long served request reaches
+# it: five super-chunks, each earlier one's y through the output buffer.
+SOLVE_SUPER = (16640, 2)
+# K2 at the shortest lanes: T below one chunk, the zero carries at both
+# ends (T, B).
+SOLVE_SHORT = ((1, 1), (2, 1), (3, 3))
 
 # Training benchmark shapes (bench_training.py:35-114): bucket T, batches,
 # question width; the full-width model's output width.  Phase 5 also holds
@@ -455,6 +470,83 @@ def dense_factor(torch, l0, l1, l2):
     return f
 
 
+def served_mlpg_entry(torch, pipeline, gen, B, T, library):
+    """K2 in its fused mode (``mlpg_served``: the model output's window
+    means through the pipeline's column map, the bucket's cached factor)
+    against its plain version at (B, T), with CUDA-event times, µs per
+    sequential step (2T of them) and, with ``library``, the dense
+    ``torch.cholesky_solve`` on the assembled right-hand side."""
+    from idiaptts_torch.ops import cuda_mlpg
+    factors, tau = pipeline.factors_for(T)
+    D = factors.shape[-1]
+    C = 3 * pipeline.num_coded_sps + 4 + 3 * pipeline.num_bap
+    out = torch.randn(B, T, C, generator=gen, device=factors.device)
+    args = (out, pipeline._colmap, factors, tau)
+    x_k = cuda_mlpg.mlpg_served(*args)
+    x_p = cuda_mlpg.mlpg_served_plain(*args)
+    err = (x_k - x_p).abs().max().item()
+    scale = max(1.0, x_p.abs().max().item())
+    # The right-hand side assembled in the plain version's float32 order;
+    # the substitutions in chunks of 16 rows with FMAs and a multiply by
+    # the rounded 1/l0 (a few ulps a step, amplified by the system's
+    # conditioning).
+    _check("banded_solve", err, 1e-5 * scale,
+           "served T={} B={} L={}".format(T, B, B * D))
+    # Bytes: the 3D window-mean columns, tau, the factor and the statics;
+    # about 21 float32 operations a lane and row (b, two substitutions).
+    bound_ms, bound_by = bound(21.0 * B * T * D, PEAK_F32_FLOPS,
+                               (4 * B * T * D + 6 * T * D) * 4)
+    ms = cuda_ms(torch, lambda: cuda_mlpg.mlpg_served(*args), 50)
+    r = dict(shape="T={},B={},L={}".format(T, B, B * D), max_abs_err=err,
+             bound_ms=bound_ms, bound_by=bound_by, ms=ms,
+             us_per_step=ms * 1e3 / (2 * T),
+             plain_ms=cuda_ms(torch, lambda: cuda_mlpg.mlpg_served_plain(
+                 *args), 1), library_ms=None)
+    if library:
+        # Library yardstick: torch.cholesky_solve on the dense (L, T, T)
+        # factor, O(T^2) per lane, for the right-hand side the kernel
+        # assembles.  Another algorithm in float32: within 1e-3 of the
+        # largest |x|.
+        feats = out.index_select(-1, pipeline._colmap.long()).reshape(
+            B, T, 3, D)
+        rhs = cuda_mlpg.b_vector(feats * tau).permute(0, 2, 1).reshape(
+            B * D, T, 1).contiguous()
+        factor = dense_factor(torch, *(factors[i].repeat(1, B)
+                                       for i in range(3)))
+        lib_x = torch.cholesky_solve(rhs, factor).reshape(B, D, T) \
+            .permute(0, 2, 1)
+        lib_err = (lib_x - x_k).abs().max().item()
+        _check("banded_solve lib", lib_err, 1e-3 * scale,
+               "cholesky_solve vs kernel, L={}".format(B * D))
+        r.update(library_ms=cuda_ms(torch, lambda: torch.cholesky_solve(
+                     rhs, factor), 5),
+                 library="torch.cholesky_solve on the dense (L, T, T) "
+                         "factor",
+                 library_abs_err=lib_err)
+        del factor, rhs
+    return r
+
+
+def lanewise_solve_entry(torch, factors, gen, B, T):
+    """K2 in its lane-wise mode (``solve_banded``: b given, the factor
+    tiled to L = B * 22 lanes) against its plain version."""
+    from idiaptts_torch.ops import cuda_mlpg
+    l0, l1, l2 = (factors[i].repeat(1, B).contiguous() for i in range(3))
+    b = torch.randn(T, B * factors.shape[-1], generator=gen,
+                    device=factors.device)
+    x_k = cuda_mlpg.solve_banded(b, l0, l1, l2)
+    x_p = cuda_mlpg.solve_banded_plain(b, l0, l1, l2)
+    err = (x_k - x_p).abs().max().item()
+    # As in served_mlpg_entry (measured 3.4e-5 and 4.2e-5 at a scale of
+    # about 50-60 on an H100).
+    _check("banded_solve", err, 1e-5 * max(1.0, x_p.abs().max().item()),
+           "lane-wise T={} L={}".format(T, b.shape[1]))
+    ms = cuda_ms(torch, lambda: cuda_mlpg.solve_banded(b, l0, l1, l2), 50)
+    return dict(max_abs_err=err, ms=ms, us_per_step=ms * 1e3 / (2 * T),
+                plain_ms=cuda_ms(torch, lambda: cuda_mlpg
+                                 .solve_banded_plain(b, l0, l1, l2), 2))
+
+
 def kernel_checks(torch, pipeline, device):
     """Each kernel against its plain version at the serving shapes, and
     the projection at PROJ_RAGGED.  Returns {kernel name: {B or shape
@@ -464,48 +556,14 @@ def kernel_checks(torch, pipeline, device):
     T, F, D = T_BUCKET, F_HIDDEN, D_IN
     results = {k: {} for k in SERVE_KERNELS}
     factors, _ = pipeline.factors_for(T)
-    n_feat = factors.shape[-1]
 
     for B in BATCHES:
-        # K2: the MLPG substitutions, L = B * 22 lanes, real factors.
-        L = B * n_feat
-        l0, l1, l2 = (factors[i].repeat(1, B).contiguous()
-                      for i in range(3))
-        b = torch.randn(T, L, generator=gen, device=device)
-        x_k = cuda_mlpg.solve_banded(b, l0, l1, l2)
-        x_p = cuda_mlpg.solve_banded_plain(b, l0, l1, l2)
-        err = (x_k - x_p).abs().max().item()
-        scale = max(1.0, x_p.abs().max().item())
-        # Same operations in the same order; only nvcc's FMA contraction
-        # differs (a few float32 ulps per step, amplified by the system's
-        # conditioning; measured 2.5e-5 and 3.8e-5 on an H100).
-        _check("banded_solve", err, 1e-5 * scale,
-               "T={} L={}".format(T, L))
-        # Library yardstick: torch.cholesky_solve on the dense (L, T, T)
-        # factor, O(T^2) per lane.  Another algorithm (blocked triangular
-        # solves) in float32: within 1e-3 of the largest |x|.
-        factor = dense_factor(torch, l0, l1, l2)
-        rhs = b.t().unsqueeze(-1).contiguous()
-        lib_err = (torch.cholesky_solve(rhs, factor).squeeze(-1).t()
-                   - x_k).abs().max().item()
-        _check("banded_solve lib", lib_err, 1e-3 * scale,
-               "cholesky_solve vs kernel, L={}".format(L))
-        # Per element: forward and back substitution, 5 float32
-        # operations each; b and three factor rows in, x out.
-        bound_ms, bound_by = bound(10.0 * T * L, PEAK_F32_FLOPS,
-                                   5 * T * L * 4)
-        results["banded_solve"][B] = dict(
-            shape="T={},L={}".format(T, L), max_abs_err=err,
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=cuda_ms(torch, lambda: torch.cholesky_solve(
-                rhs, factor), 5),
-            library="torch.cholesky_solve on the dense (L, T, T) factor",
-            library_abs_err=lib_err,
-            ms=cuda_ms(torch, lambda: cuda_mlpg.solve_banded(
-                b, l0, l1, l2), 20),
-            plain_ms=cuda_ms(torch, lambda: cuda_mlpg.solve_banded_plain(
-                b, l0, l1, l2), 2))
-        del factor, rhs
+        # K2 as the served MLPG stage launches it (fused mode), with the
+        # dense library yardstick; then its lane-wise mode.
+        results["banded_solve"][B] = served_mlpg_entry(
+            torch, pipeline, gen, B, T, library=True)
+        results["banded_solve"][B]["lanewise"] = lanewise_solve_entry(
+            torch, factors, gen, B, T)
 
         # K6, projection half: bf16(x . Wx) + b.
         xin, wx, bias = projection_inputs(torch, gen, T, B, D, F)
@@ -558,6 +616,14 @@ def kernel_checks(torch, pipeline, device):
             torch, lambda: cuda_lstm.scan_layer_tmajor(
                 xin, wx, wh_cat, bias), 1)
 
+    # K2 at the longest bucket the card tests hold (the dense yardstick's
+    # (L, T, T) factor would take 17.7 GB: not timed).
+    results["banded_solve"]["T={},B={}".format(*SOLVE_LONG)] = \
+        served_mlpg_entry(torch, pipeline, gen, SOLVE_LONG[1], SOLVE_LONG[0],
+                          library=False)
+    for T_s, B_s in (SOLVE_SUPER,) + SOLVE_SHORT:
+        results["banded_solve"]["T={},B={}".format(T_s, B_s)] = \
+            served_mlpg_entry(torch, pipeline, gen, B_s, T_s, library=False)
     # The projection at shapes that leave every edge of its tiling ragged.
     for T_r, B_r, D_r, F_r in PROJ_RAGGED:
         results["bilstm_proj"]["T={},B={},D={},F={}".format(
@@ -745,11 +811,14 @@ def time_slice(torch, pipeline, model, questions, card):
             kernels = profile_step(torch, lambda: pipeline.run(
                 model, batch, lengths, f0c))
         busy = sum(kernels.values())
+        ours = port_kernel_ms(kernels)
         out[B] = dict(T=T, audio_s=audio_s, total_ms=total,
                       xrt=audio_s / (total / 1e3), **stages,
                       device_busy_ms=busy if kernels else None,
                       idle_share=1.0 - busy / total if kernels else None,
-                      port_kernels_ms=port_kernel_ms(kernels),
+                      port_kernels_ms=ours,
+                      banded_solve_share=(ours["banded_solve"] / busy
+                                          if kernels else None),
                       top_kernels_ms=dict(sorted(
                           kernels.items(), key=lambda kv: -kv[1])[:10]))
         log("  B={} T={} audio {:.2f} s: label->wav {:.3f} ms = {:.1f}x "
@@ -759,9 +828,9 @@ def time_slice(torch, pipeline, model, questions, card):
                           stages["vocoder_ms"], card))
         if kernels:
             log("    device busy {:.3f} ms a batch (idle {:.1%}); port "
-                "kernels ms: {}".format(busy, 1.0 - busy / total,
-                                        json.dumps(out[B]
-                                                   ["port_kernels_ms"])))
+                "kernels ms: {}; K2 {:.2%} of the device time".format(
+                    busy, 1.0 - busy / total, json.dumps(ours),
+                    out[B]["banded_solve_share"]))
             for name, v in out[B]["top_kernels_ms"].items():
                 log("    {:9.3f} ms  {:5.1%}  {}".format(v, v / busy,
                                                         name[:100]))
@@ -1086,13 +1155,14 @@ def profile_step(torch, step, steps=2):
 
 
 def port_kernel_ms(kernels):
-    """Device ms of the LSTM kernels in a profile_step result, by
+    """Device ms of the LSTM kernels and K2 in a profile_step result, by
     demangled name; the recurrence's template instances are
     <m-tiles, TRAIN, residual type>."""
     def recurrence(train):
         return lambda n: ("bilstm_recurrence_kernel<" in n
                           and (", true" in n) == train)
-    picks = (("bilstm_proj", lambda n: "bilstm_proj_kernel" in n),
+    picks = (("banded_solve", lambda n: "banded_solve_kernel" in n),
+             ("bilstm_proj", lambda n: "bilstm_proj_kernel" in n),
              ("bilstm_recurrence", recurrence(False)),
              ("bilstm_recurrence_train", recurrence(True)),
              ("bilstm_bwd", lambda n: "bilstm_bwd_kernel" in n))
@@ -1497,16 +1567,19 @@ def vocode_against_cpu(torch, device, model, feats, T=WN_T_CPU):
 # -- phase 9 -----------------------------------------------------------------
 
 def mlpg_system(torch, device, T, L, seed):
-    """A one-shot MLPG system (b, ab0, ab1, ab2), each (T, L), assembled
-    on ``device`` by the port's ``_banded_system`` from seeded window
-    means and variances, as ``mlpg_torch`` assembles it."""
+    """A one-shot MLPG system from seeded window means (T, 3L) and
+    variances (3L,): (means, variances, [b, ab0, ab1, ab2]), the last
+    assembled on ``device`` by the port's ``_banded_system`` (1e11 delta
+    variances on the boundary frames), each (T, L)."""
     from idiaptts_torch.ops import mlpg
     rs = np.random.RandomState(seed)
-    var = mlpg._boundary_variances(
-        (rs.rand(3 * L) * 0.5 + 0.05).astype(np.float32), L, T).to(device)
-    feats = torch.from_numpy(rs.randn(T, 3, L).astype(np.float32)).to(device)
+    var_np = (rs.rand(3 * L) * 0.5 + 0.05).astype(np.float32)
+    feats_np = rs.randn(T, 3, L).astype(np.float32)
+    var = mlpg._boundary_variances(var_np, L, T).to(device)
+    feats = torch.from_numpy(feats_np).to(device)
     bands, b = mlpg._banded_system(feats, var)
-    return [b.contiguous()] + [a.contiguous() for a in bands]
+    return (feats.reshape(T, 3 * L), torch.from_numpy(var_np).to(device),
+            [b.contiguous()] + [a.contiguous() for a in bands])
 
 
 def dense_spd(torch, ab0, ab1, ab2):
@@ -1516,19 +1589,27 @@ def dense_spd(torch, ab0, ab1, ab2):
 
 
 def mlpg_kernel_checks(torch, device, shapes=MLPG_SHAPES, reps=20):
-    """K1 against its plain version at each (T, L) of ``shapes``, with
-    CUDA-event times of the kernel, the plain version and the dense
-    library solve.  Returns {(T, L): measurements}."""
+    """K1 against its plain version at each (T, L) of ``shapes``: as
+    ``MLPG.generation`` launches it (``mlpg_utterance``: window means and
+    variances in, the system assembled in the kernel), and on the system
+    assembled outside (``mlpg_oneshot``); CUDA-event times of both, their
+    plain versions and the dense library solve.  Returns {(T, L):
+    measurements}."""
     from idiaptts_torch.ops import cuda_mlpg
     out = {}
     for seed, (T, L) in enumerate(shapes):
-        args = mlpg_system(torch, device, T, L, seed)
-        x_k = cuda_mlpg.mlpg_oneshot(*args)
-        x_p = cuda_mlpg.mlpg_oneshot_plain(*args)
+        means, var, args = mlpg_system(torch, device, T, L, seed)
+        x_f = cuda_mlpg.mlpg_utterance(means, var)
+        x_p = cuda_mlpg.mlpg_utterance_plain(means, var)
         scale = x_p.abs().max().item()
-        err = (x_k - x_p).abs().max().item()
+        err = (x_f - x_p).abs().max().item()
         _check("mlpg_oneshot", err / scale, MLPG_ONESHOT_TOL,
-               "T={} L={} (rel)".format(T, L))
+               "T={} L={} fused (rel)".format(T, L))
+        x_k = cuda_mlpg.mlpg_oneshot(*args)
+        x_kp = cuda_mlpg.mlpg_oneshot_plain(*args)
+        thin_err = (x_k - x_kp).abs().max().item()
+        _check("mlpg_oneshot", thin_err / scale, MLPG_ONESHOT_TOL,
+               "T={} L={} assembled (rel)".format(T, L))
         # Library yardstick: dense Cholesky and solve, O(T^3) per lane.
         a = dense_spd(torch, *args[1:])
         rhs = args[0].t().unsqueeze(-1).contiguous()
@@ -1538,30 +1619,40 @@ def mlpg_kernel_checks(torch, device, shapes=MLPG_SHAPES, reps=20):
             return torch.cholesky_solve(rhs, chol)
 
         lib_x = library().squeeze(-1).t()
-        lib_err = (lib_x - x_p).abs().max().item() / scale
-        # Four (T, L) float32 inputs read once and the output written
-        # once; the kernel also writes and reads back a (4, T, L)
-        # scratch.  About 20 float32 operations per element.
-        bound_ms, bound_by = bound(20.0 * T * L, PEAK_F32_FLOPS,
-                                   5 * T * L * 4)
+        lib_err = (lib_x - x_kp).abs().max().item() / scale
+        # The window means and variances read once and the trajectory
+        # written once; about 45 float32 operations per element (the
+        # system's rows ~25, the factor row ~10, two substitutions 10).
+        bound_ms, bound_by = bound(45.0 * T * L, PEAK_F32_FLOPS,
+                                   (4 * T * L + 3 * L) * 4)
+        ms = cuda_ms(torch, lambda: cuda_mlpg.mlpg_utterance(means, var),
+                     reps)
+        thin_ms = cuda_ms(torch, lambda: cuda_mlpg.mlpg_oneshot(*args), reps)
+        lc, scratch_bytes = cuda_mlpg.oneshot_plan(device, T, L)
         out[(T, L)] = dict(
             shape="T={},L={}".format(T, L), max_abs_err=err,
             max_rel_err=err / scale, bound_ms=bound_ms, bound_by=bound_by,
-            bound_ms_with_scratch=bound(20.0 * T * L, PEAK_F32_FLOPS,
-                                        13 * T * L * 4)[0],
-            ms=cuda_ms(torch, lambda: cuda_mlpg.mlpg_oneshot(*args), reps),
-            plain_ms=cuda_ms(torch, lambda: cuda_mlpg.mlpg_oneshot_plain(
-                *args), 1),
+            ms=ms, us_per_step=ms * 1e3 / (2 * T),
+            plain_ms=cuda_ms(torch, lambda: cuda_mlpg.mlpg_utterance_plain(
+                means, var), 1),
             library_ms=cuda_ms(torch, library, 3),
             library_rel_err=lib_err,
             library="dense torch.linalg.cholesky_ex + torch.cholesky_solve "
-                    "on (L, T, T) float32, O(T^3)")
+                    "on (L, T, T) float32, O(T^3)",
+            lanes_per_block=lc, store_in_shared_memory=scratch_bytes == 0,
+            assembled=dict(
+                max_abs_err=thin_err, ms=thin_ms,
+                bound_ms=bound(20.0 * T * L, PEAK_F32_FLOPS,
+                               5 * T * L * 4)[0],
+                plain_ms=cuda_ms(torch, lambda: cuda_mlpg.mlpg_oneshot_plain(
+                    *args), 1)))
         r = out[(T, L)]
         log("  mlpg_oneshot       T={:<5d} L={:<3d} kernel {:9.4f} ms "
-            "({:.3f} us/step) | plain {:9.3f} ms | library {:9.4f} ms "
-            "(rel err {:.1e}) | bound {:.6f} ms ({})".format(
-                T, L, r["ms"], r["ms"] * 1e3 / (2 * T), r["plain_ms"],
-                r["library_ms"], lib_err, bound_ms, bound_by))
+            "({:.3f} us/step; assembled outside {:9.4f} ms) | plain "
+            "{:9.3f} ms | library {:9.4f} ms (rel err {:.1e}) | bound "
+            "{:.6f} ms ({}) | {} lanes a block".format(
+                T, L, r["ms"], r["us_per_step"], thin_ms, r["plain_ms"],
+                r["library_ms"], lib_err, bound_ms, bound_by, lc))
         del a, rhs
     return out
 
@@ -2055,6 +2146,10 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
             entry["evaluate_path"] = estats
         if name == "bilstm_recurrence":
             entry["narrow"] = kres[name]["narrow"]
+        if name == "banded_solve":
+            entry["lanewise"] = first["lanewise"]
+            entry["long_bucket"] = kres[name]["T={},B={}".format(
+                *SOLVE_LONG)]
         if name in ("bilstm_recurrence_train", "bilstm_bwd"):
             entry["third_batch"] = tres[name][KERNEL_TRAIN_BATCHES[2]]
             entry["narrow"] = tres[name]["narrow"]

@@ -212,6 +212,30 @@ class Kernel:
         self.launches += 1
 
 
+class HostEntry:
+    """A C entry point of the kernel library that launches nothing (a
+    kernel's launch plan), called with ``device`` current.  A non-zero
+    return raises :class:`KernelError`; no launch is counted."""
+
+    def __init__(self, symbol, argtypes):
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self._fn = None
+
+    def __call__(self, device, *args):
+        lib = library()
+        if self._fn is None:
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):
+            err = self._fn(*args)
+        if err != 0:
+            raise KernelError("{} failed: {} (cuda error {})".format(
+                self.symbol, lib.idt_error_string(err).decode(), err))
+
+
 def reset_counts():
     """Zero every kernel's launch counter."""
     for k in _kernels:

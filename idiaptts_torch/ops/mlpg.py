@@ -8,14 +8,16 @@ bandwidth-2 Cholesky factorisation plus two substitutions, vectorised
 over all feature dimensions (lanes).  Three paths:
 
 - :func:`mlpg_torch` (``MLPG.generation``, one utterance at a time):
-  assembles the banded system on the device and runs factorisation and
-  both substitutions in one :func:`~idiaptts_torch.ops.cuda_mlpg.
-  mlpg_oneshot` launch.
+  uploads the window means and the variances, and one
+  :func:`~idiaptts_torch.ops.cuda_mlpg.mlpg_utterance` launch (K1)
+  assembles the banded system and runs the factorisation and both
+  substitutions.
 - :func:`mlpg_factorise` + :func:`mlpg_solve` (the batch path): the
   system depends only on the variances and the frame count, so the
   Cholesky runs once per length bucket and each batch runs only the two
-  substitutions, with batch x feature folded into the lanes of one
-  :func:`~idiaptts_torch.ops.cuda_mlpg.solve_banded` call.
+  substitutions, the batch's utterances sharing the factor, in one
+  :func:`~idiaptts_torch.ops.cuda_mlpg.mlpg_served` launch (K2), which
+  also assembles the right-hand side.
 - :func:`mlpg_numpy` (``backend="numpy"``): scipy ``solveh_banded`` in
   float64 on the host, the numerical reference.
 """
@@ -24,16 +26,11 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from idiaptts_torch.ops.cuda_mlpg import (cholesky_banded_plain,
-                                          mlpg_oneshot, solve_banded)
+from idiaptts_torch.ops import cuda_mlpg
 from idiaptts_torch.ops.dispatch import resolve_device
 
-_WINDOWS = (
-    np.array([0.0, 1.0, 0.0]),        # static
-    np.array([-0.5, 0.0, 0.5]),       # delta (np.gradient convention)
-    np.array([1.0, -2.0, 1.0]),       # delta-delta
-)
-_BOUNDARY_VAR = 1e11
+_WINDOWS = cuda_mlpg.WINDOWS
+_BOUNDARY_VAR = cuda_mlpg.BOUNDARY_VAR
 
 
 # -- host reference (numpy, float64) ----------------------------------------
@@ -91,74 +88,11 @@ def mlpg_numpy(features, covariance, feature_dim):
     return out
 
 
-# -- the banded system in torch -----------------------------------------------
-
-def _shift(x, k):
-    """x[..., t, :] -> x[..., t - k, :] along the time axis (-2), zero
-    filled."""
-    if k == 0:
-        return x
-    zeros = torch.zeros_like(x[..., :abs(k), :])
-    if k > 0:
-        return torch.cat([zeros, x[..., :-k, :]], dim=-2)
-    return torch.cat([x[..., -k:, :], zeros], dim=-2)
-
-
-def _boundary_variances(variances, feature_dim, num_frames):
-    """(3*D,) diagonal variances -> (T, 3, D) float32 per-frame window
-    variances with the 1e11 delta variances on the first and last
-    frame."""
-    T, D = int(num_frames), int(feature_dim)
-    var_row = torch.tensor(np.asarray(variances, np.float32)).reshape(3, D)
-    var = var_row[None].expand(T, 3, D).clone()
-    var[0, 1:, :] = _BOUNDARY_VAR
-    var[-1, 1:, :] = _BOUNDARY_VAR
-    return var
-
-
-def _banded_precision(variances):
-    """Lower-banded pentadiagonal precision rows [ab0, ab1, ab2], each
-    (T, D), from per-frame window variances (T, 3, D), on their
-    device."""
-    T, _, D = variances.shape
-    tau = 1.0 / variances
-    bands = [torch.zeros(T, D, dtype=tau.dtype, device=tau.device)
-             for _ in range(3)]
-    idx = torch.arange(T, device=tau.device)
-    for w, c in enumerate(_WINDOWS):
-        for i in (-1, 0, 1):
-            for j in (-1, 0, 1):
-                band = j - i
-                if band < 0:
-                    continue
-                contrib = float(c[i + 1] * c[j + 1]) * _shift(
-                    tau[:, w], i)
-                valid = ((idx - i >= 0) & (idx - i < T)
-                         & (idx - i + j >= 0) & (idx - i + j < T))
-                contrib = torch.where(valid[:, None], contrib,
-                                      torch.zeros_like(contrib))
-                bands[band] = bands[band] + contrib
-    return bands
-
-
-def _b_vector(btau):
-    """b = sum_w W_w^T btau_w from the precision-weighted window means
-    btau (..., T, 3, D); returns (..., T, D)."""
-    b = torch.zeros(btau.shape[:-2] + btau.shape[-1:], dtype=btau.dtype,
-                    device=btau.device)
-    for w, coeff in enumerate(_WINDOWS):
-        for k in (-1, 0, 1):
-            if coeff[k + 1] != 0.0:
-                b = b + float(coeff[k + 1]) * _shift(btau[..., w, :], k)
-    return b
-
-
-def _banded_system(features, variances):
-    """The banded system of one utterance (the role of
-    ``_banded_system_jnp``): features and variances (T, 3, D) ->
-    ([ab0, ab1, ab2], b), each (T, D), on the inputs' device."""
-    return _banded_precision(variances), _b_vector(
-        features * (1.0 / variances))
+# The torch assembly lives beside the kernels that build the system
+# themselves (their plain versions use it); these names are its callers'.
+_boundary_variances = cuda_mlpg.boundary_variances
+_banded_precision = cuda_mlpg.banded_precision
+_banded_system = cuda_mlpg.banded_system
 
 
 # -- one-shot path (MLPG.generation) -----------------------------------------
@@ -171,14 +105,15 @@ def mlpg_torch(features, variances, feature_dim, device="cuda"):
     features: (T, 3*feature_dim) [static, delta, delta-delta] window
     means; variances: (3*feature_dim,) diagonal variances.  Returns the
     smoothed (T, feature_dim) float32 trajectory as a tensor on
-    ``device``."""
+    ``device``: one upload of each input and one K1 launch, which builds
+    the banded system itself."""
     device = resolve_device(device)
-    feats = torch.tensor(np.asarray(features, np.float32), device=device)
-    T, D = feats.shape[0], int(feature_dim)
-    var = _boundary_variances(variances, D, T).to(device)
-    (ab0, ab1, ab2), b = _banded_system(feats.reshape(T, 3, D), var)
-    return mlpg_oneshot(b.contiguous(), ab0.contiguous(), ab1.contiguous(),
-                        ab2.contiguous())
+    means = torch.tensor(np.asarray(features, np.float32), device=device)
+    var = torch.tensor(np.asarray(variances, np.float32), device=device)
+    if var.shape != (3 * int(feature_dim),):
+        raise ValueError("variances must be (3*feature_dim,) = ({},), got "
+                         "{}".format(3 * int(feature_dim), tuple(var.shape)))
+    return cuda_mlpg.mlpg_utterance(means, var)
 
 
 class MLPG:
@@ -211,7 +146,7 @@ def mlpg_factorise(variances, feature_dim, num_frames, device="cuda"):
     reference's precision), then moved."""
     device = resolve_device(device)
     var = _boundary_variances(variances, feature_dim, num_frames)
-    l0, l1, l2 = cholesky_banded_plain(*_banded_precision(var))
+    l0, l1, l2 = cuda_mlpg.cholesky_banded_plain(*_banded_precision(var))
     factors = torch.stack([l0, l1, l2])
     tau = 1.0 / var
     return factors.to(device), tau.to(device)
@@ -222,15 +157,12 @@ def mlpg_solve(features, factors, tau, feature_dim):
 
     features: (..., T, 3*feature_dim) window means; factors (3, T, D) and
     tau (T, 3, D) from :func:`mlpg_factorise`.  Returns (..., T, D).
-    Leading dims fold with the feature dim into the lanes of one banded
-    solve: (T, B*D)."""
+    Leading dims fold into the batch of one
+    :func:`~idiaptts_torch.ops.cuda_mlpg.mlpg_served` call (the column map
+    the identity)."""
     T = features.shape[-2]
     D = int(feature_dim)
-    feats = features.reshape(features.shape[:-2] + (T, 3, D))
-    b = _b_vector(feats * tau)
-    flat = b.reshape(-1, T, D)
-    B = flat.shape[0]
-    lanes = flat.permute(1, 0, 2).reshape(T, B * D).contiguous()
-    l0, l1, l2 = (factors[i].repeat(1, B).contiguous() for i in range(3))
-    solved = solve_banded(lanes, l0, l1, l2)
-    return solved.reshape(T, B, D).permute(1, 0, 2).reshape(b.shape)
+    means = features.reshape(-1, T, 3 * D).contiguous()
+    colmap = torch.arange(3 * D, dtype=torch.int32, device=means.device)
+    out = cuda_mlpg.mlpg_served(means, colmap, factors, tau)
+    return out.reshape(features.shape[:-1] + (D,))

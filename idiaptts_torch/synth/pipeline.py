@@ -26,7 +26,8 @@ import torch
 
 from idiaptts_torch.ops import mcep as mcep_ops
 from idiaptts_torch.ops.dispatch import resolve_device
-from idiaptts_torch.ops.mlpg import mlpg_factorise, mlpg_solve
+from idiaptts_torch.ops.cuda_mlpg import mlpg_served
+from idiaptts_torch.ops.mlpg import mlpg_factorise
 from idiaptts_torch.ops.world.d4c import decode_aperiodicity
 from idiaptts_torch.ops.world.synthesis import (_harmonic_part_mcep,
                                                 _noise_part)
@@ -95,6 +96,15 @@ class FusedAcousticPipeline:
             var_sp[:D], var_lf0[:1], var_bap[:NB],
             var_sp[D:2 * D], var_lf0[1:2], var_bap[NB:2 * NB],
             var_sp[2 * D:], var_lf0[2:], var_bap[2 * NB:]])
+        # The model output's columns in that fused order, read by the
+        # MLPG kernel in place of a gathered copy.
+        self._colmap = torch.tensor(np.concatenate([
+            np.concatenate([w * D + np.arange(D), [3 * D + w],
+                            3 * D + 4 + w * NB + np.arange(NB)])
+            for w in range(3)]), dtype=torch.int32, device=self.device)
+        # The statics of a padded frame: c0 at -100 (silence), the rest 0.
+        self._silent = torch.zeros(D + 1 + NB, device=self.device)
+        self._silent[0] = -100.0
         if (mean is None) != (scale is None):
             raise ValueError(
                 "FusedAcousticPipeline needs BOTH mean and scale for "
@@ -124,26 +134,16 @@ class FusedAcousticPipeline:
     def mlpg_stage(self, out, lengths_b, factors, tau):
         """Model output (B, T, C) -> (smoothed statics (B, T, D+1+NB),
         voicing (B, T) bool), with the padded tail silenced."""
-        D, NB = self.num_coded_sps, self.num_bap
-        sp_blk = out[..., :3 * D]
-        lf0_blk = out[..., 3 * D:3 * D + 3]
+        D = self.num_coded_sps
         vuv_b = out[..., 3 * D + 3] > 0.5
-        bap_blk = out[..., 3 * D + 4:]
-        fused = torch.cat([
-            sp_blk[..., :D], lf0_blk[..., :1], bap_blk[..., :NB],
-            sp_blk[..., D:2 * D], lf0_blk[..., 1:2],
-            bap_blk[..., NB:2 * NB],
-            sp_blk[..., 2 * D:], lf0_blk[..., 2:],
-            bap_blk[..., 2 * NB:]], dim=-1)
-        smoothed = mlpg_solve(fused, factors, tau, D + 1 + NB)
+        # (A no-op for the model's float32 output.)
+        smoothed = mlpg_served(out.to(torch.float32).contiguous(),
+                               self._colmap, factors, tau)
         # Whatever the model predicts on zero-padded questions must not
         # synthesise audio that bleeds into the valid frames.
         t_idx = torch.arange(smoothed.shape[1], device=smoothed.device)
         valid = t_idx[None, :] < lengths_b[:, None]
-        silent = torch.zeros(smoothed.shape[-1], dtype=smoothed.dtype,
-                             device=smoothed.device)
-        silent[0] = -100.0
-        smoothed = torch.where(valid[..., None], smoothed, silent)
+        smoothed = torch.where(valid[..., None], smoothed, self._silent)
         return smoothed, vuv_b & valid
 
     def vocoder_stage(self, smoothed, vuv_b, f0_cont_b, seed=0, z=None):

@@ -7,6 +7,8 @@ imports, so run this file without the conftest:
     python -m pytest --noconftest -m cuda tests/unit/test_torch_cuda_kernels.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -35,7 +37,10 @@ def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
-@pytest.mark.parametrize("T,L", [(1, 3), (5, 40), (64, 133), (512, 1056)])
+# 4097 and 16640 pass the 4096 rows a block holds: 2 and 5 super-chunks.
+@pytest.mark.parametrize("T,L", [(1, 3), (2, 40), (3, 40), (5, 40), (64, 133),
+                                 (512, 1056), (2048, 1056), (4097, 40),
+                                 (16640, 44)])
 def test_banded_solve_kernel_matches_plain(dev, T, L):
     var = np.random.RandomState(0).rand(66).astype(np.float32) + 0.05
     factors, _ = mlpg_factorise(var, 22, T, device=dev)
@@ -47,9 +52,61 @@ def test_banded_solve_kernel_matches_plain(dev, T, L):
     x = cuda_mlpg.solve_banded(b, l0, l1, l2)
     assert cuda_mlpg.SOLVE.launches == before + 1
     ref = cuda_mlpg.solve_banded_plain(b, l0, l1, l2)
-    # Same operations; nvcc contracts multiply-subtract into FMAs.
+    # Same recurrences, in chunks of 16 rows, with FMAs and a multiply by
+    # the rounded 1/l0 in place of the divide.
     torch.testing.assert_close(x, ref, rtol=0,
                                atol=1e-5 * max(1.0, ref.abs().max().item()))
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "fixtures", "WORLD", "cmp_mcep20")
+
+
+def _stream_variances(name):
+    with np.load(os.path.join(FIXTURES, name + "-mean-covariance.npz")) as f:
+        return np.diagonal(f["covariance"]).astype(np.float32)
+
+
+def _served_inputs(dev, B, T, seed=0):
+    """A served batch as FusedAcousticPipeline.mlpg_stage sees it: a
+    seeded (B, T, 67) model output, the pipeline's column map and the
+    bucket's factor from the fixture variances."""
+    from idiaptts_torch.synth.pipeline import FusedAcousticPipeline
+    variances = {k: _stream_variances(n) for k, n in (
+        ("sp", "mcep20"), ("lf0", "lf0"), ("bap", "bap"))}
+    pipe = FusedAcousticPipeline(None, variances, 20, device=dev)
+    factors, tau = pipe.factors_for(T)
+    out = torch.randn(B, T, 67, generator=_gen(dev, seed), device=dev)
+    return out, pipe._colmap, factors, tau
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 2), (3, 3), (6, 512),
+                                 (48, 512), (48, 2048), (2, 16640)])
+def test_mlpg_served_kernel_matches_plain(dev, B, T):
+    args = _served_inputs(dev, B, T)
+    before = cuda_mlpg.SOLVE.launches
+    x = cuda_mlpg.mlpg_served(*args)
+    torch.cuda.synchronize()
+    assert cuda_mlpg.SOLVE.launches == before + 1
+    ref = cuda_mlpg.mlpg_served_plain(*args)
+    assert x.shape == ref.shape == (B, T, 22)
+    # The right-hand side assembled in the same float32 order; the
+    # substitutions as in test_banded_solve_kernel_matches_plain.
+    torch.testing.assert_close(x, ref, rtol=0,
+                               atol=1e-5 * max(1.0, ref.abs().max().item()))
+
+
+def test_mlpg_served_refuses_what_it_does_not_take(dev):
+    out, colmap, factors, tau = _served_inputs(dev, 2, 8)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_mlpg.mlpg_served(out, colmap.long(), factors, tau)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_mlpg.mlpg_served(out.double(), colmap, factors, tau)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_mlpg.mlpg_served(out, colmap, factors[:, :4], tau)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_mlpg.mlpg_served(out.transpose(0, 1).contiguous()
+                              .transpose(0, 1), colmap, factors, tau)
 
 
 def _bf16_ulp(x):
@@ -526,3 +583,104 @@ def test_mlpg_oneshot_refuses_wrong_dtype(dev):
     args = [a.double() for a in _mlpg_system(dev, 8, 4)]
     with pytest.raises(ValueError, match="float32"):
         cuda_mlpg.mlpg_oneshot(*args)
+
+
+@pytest.mark.parametrize("L", [1, 20, 60])
+@pytest.mark.parametrize("T", [1, 2, 3, 512, 2048])
+def test_mlpg_utterance_kernel_matches_plain(dev, T, L):
+    """K1 assembling the system itself from the window means and
+    variances, against the plain fused version."""
+    rs = np.random.RandomState(T + L)
+    means = torch.from_numpy(rs.randn(T, 3 * L).astype(np.float32)).to(dev)
+    var = torch.from_numpy((rs.rand(3 * L) * 0.5 + 0.05).astype(
+        np.float32)).to(dev)
+    before = cuda_mlpg.ONESHOT.launches
+    x = cuda_mlpg.mlpg_utterance(means, var)
+    torch.cuda.synchronize()
+    assert cuda_mlpg.ONESHOT.launches == before + 1
+    ref = cuda_mlpg.mlpg_utterance_plain(means, var)
+    torch.testing.assert_close(
+        x, ref, rtol=0, atol=MLPG_ONESHOT_TOL * ref.abs().max().item())
+
+
+# The MLPG post-processing of a stream on the card against the CPU path,
+# relative to the stream's largest magnitude (chip_smoke.py's
+# MLPG_STREAM_TOL): the fixture variances span 6e-5 to 70.
+MLPG_STREAM_TOL = 1e-4
+
+
+@pytest.mark.parametrize("stream", ["mcep20", "lf0", "bap"])
+def test_mlpg_utterance_kernel_on_fixture_variances(dev, stream):
+    var = _stream_variances(stream)
+    T = 487
+    rs = np.random.RandomState(7)
+    means = (np.sqrt(var) * rs.randn(T, var.shape[0])).astype(np.float32)
+    x = cuda_mlpg.mlpg_utterance(torch.from_numpy(means).to(dev),
+                                 torch.from_numpy(var).to(dev)).cpu()
+    ref = cuda_mlpg.mlpg_utterance_plain(torch.from_numpy(means),
+                                         torch.from_numpy(var))
+    torch.testing.assert_close(
+        x, ref, rtol=0, atol=MLPG_STREAM_TOL * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("mode", ["fused", "thin"])
+def test_mlpg_oneshot_global_scratch(dev, mode):
+    """Where one lane's store does not fit shared memory (T > ~14,500),
+    K1 runs from a global scratch: same code, same result."""
+    T, L = 15000, 2
+    assert cuda_mlpg.oneshot_plan(dev, T, L)[1] > 0
+    rs = np.random.RandomState(11)
+    means = torch.from_numpy(rs.randn(T, 3 * L).astype(np.float32))
+    var = torch.from_numpy((rs.rand(3 * L) * 0.5 + 0.05).astype(np.float32))
+    if mode == "fused":
+        ref = cuda_mlpg.mlpg_utterance_plain(means, var)
+        x = cuda_mlpg.mlpg_utterance(means.to(dev), var.to(dev)).cpu()
+    else:
+        from idiaptts_torch.ops import mlpg
+        bands, b = mlpg._banded_system(
+            means.reshape(T, 3, L), mlpg._boundary_variances(var, L, T))
+        ref = cuda_mlpg.mlpg_oneshot_plain(b, *bands)
+        x = cuda_mlpg.mlpg_oneshot(*(a.contiguous().to(dev)
+                                     for a in [b] + bands)).cpu()
+    torch.testing.assert_close(
+        x, ref, rtol=0, atol=MLPG_ONESHOT_TOL * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("T,L", [(1, 1), (512, 20), (2048, 60),
+                                 (14000, 2), (20000, 3)])
+def test_oneshot_plan_fits_shared_memory(dev, T, L):
+    """K1's plan from the card's shared memory: the store of T x LC
+    float4 rows in shared memory where one lane fits (LC = 20 at T = 512,
+    6 at T = 2048), else a global scratch of (ceil(L / LC), T, LC) float4
+    for a warp of lanes; either way the launch runs and is right."""
+    lc, scratch = cuda_mlpg.oneshot_plan(dev, T, L)
+    assert 1 <= lc <= min(L, 32)
+    # A block's shared memory, less a margin for the kernel's own static
+    # bytes (384), beside the store and one 8-byte mbarrier a 32-row chunk.
+    optin = torch.cuda.get_device_properties(dev) \
+        .shared_memory_per_block_optin
+    room = optin - 1024 - -(-T // 32) * 8
+    if scratch == 0:
+        assert 16 * T * lc <= optin
+        assert lc == min(L, 32) or 16 * T * (lc + 1) > room
+    else:
+        assert 16 * T > room
+        assert lc == min(L, 32) and scratch == -(-L // lc) * T * lc * 16
+    rs = np.random.RandomState(T)
+    means = torch.from_numpy(rs.randn(T, 3 * L).astype(np.float32))
+    var = torch.from_numpy((rs.rand(3 * L) * 0.5 + 0.05).astype(np.float32))
+    x = cuda_mlpg.mlpg_utterance(means.to(dev), var.to(dev)).cpu()
+    ref = cuda_mlpg.mlpg_utterance_plain(means, var)
+    torch.testing.assert_close(
+        x, ref, rtol=0, atol=MLPG_ONESHOT_TOL * ref.abs().max().item())
+
+
+def test_mlpg_utterance_refuses_what_it_does_not_take(dev):
+    means = torch.zeros(8, 6, device=dev)
+    var = torch.ones(6, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_mlpg.mlpg_utterance(means.double(), var.double())
+    with pytest.raises(ValueError, match="expected"):
+        cuda_mlpg.mlpg_utterance(means, torch.ones(9, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_mlpg.mlpg_utterance(torch.zeros(6, 8, device=dev).t(), var)

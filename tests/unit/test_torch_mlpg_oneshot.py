@@ -9,6 +9,8 @@ reference and ``mlpg_numpy`` (scipy, float64) the truth.  Inputs come
 from numpy with a fixed seed.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -90,3 +92,69 @@ def test_unknown_backend_raises():
     feats, cov, _ = _system(4, 1)
     with pytest.raises(ValueError, match="backend"):
         torch_mlpg.MLPG().generation(feats, cov, 1, backend="jax")
+
+
+# -- the one-shot MLPG with the system assembled in the kernel (K1) ----------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, "fixtures", "WORLD", "cmp_mcep20")
+
+
+def _fixture_stream(name, T, seed):
+    """Window means (T, 3D) drawn around a fixture stream's mean with its
+    variances, and those variances (3D,) (the covariance diagonal, as
+    the WORLD reader's post-processing passes it)."""
+    with np.load(os.path.join(FIXTURES, name + "-mean-covariance.npz")) as f:
+        mean = f["mean"].astype(np.float32)
+        var = np.diagonal(f["covariance"]).astype(np.float32)
+    rs = np.random.RandomState(seed)
+    feats = (mean + np.sqrt(var) * rs.randn(T, var.shape[0])).astype(
+        np.float32)
+    return feats, var
+
+
+@pytest.mark.parametrize("stream", ["mcep20", "lf0", "bap"])
+@pytest.mark.parametrize("T", [1, 2, 3, 64, 487])
+def test_mlpg_utterance_plain_matches_jax_and_float64(T, stream):
+    """The fused one-shot MLPG's plain version (means and variances in,
+    trajectory out) on a fixture stream's variances, with the 1e11
+    boundary rows, against mlpg_jax and scipy float64."""
+    feats, var = _fixture_stream(stream, T, seed=T)
+    D = var.shape[0] // 3
+    got = cuda_mlpg.mlpg_utterance(torch.from_numpy(feats),
+                                   torch.from_numpy(var)).numpy()
+    ref_jax = np.asarray(jax_mlpg.mlpg_jax(feats, var, D))
+    truth = jax_mlpg.mlpg_numpy(feats, np.diag(var), D)
+    assert got.shape == (T, D) and got.dtype == np.float32
+    top = np.abs(truth).max()
+    # float32 recurrences of 2T steps on both sides.  The fixture's
+    # variances span 6e-5 to 70 (lf0's deltas to mcep's c0), so float32
+    # rounding weighs more than on the seeded variances above: measured
+    # at most 2.1e-5 of the largest |x| against mlpg_jax and 4.8e-5
+    # against float64 (mlpg_jax itself: 3.8e-5).
+    np.testing.assert_allclose(got, ref_jax, rtol=0, atol=1e-4 * top)
+    np.testing.assert_allclose(got, truth, rtol=0, atol=1e-4 * top)
+
+
+def test_mlpg_utterance_plain_is_oneshot_of_the_assembled_system():
+    """The kernel's own assembly replaces _banded_system: the plain fused
+    version is K1's plain version on that system, bit for bit."""
+    feats, var = _fixture_stream("mcep20", 41, seed=3)
+    T, D = 41, 20
+    got = cuda_mlpg.mlpg_utterance(torch.from_numpy(feats),
+                                   torch.from_numpy(var))
+    bands, b = torch_mlpg._banded_system(
+        torch.from_numpy(feats.reshape(T, 3, D)),
+        torch_mlpg._boundary_variances(var, D, T))
+    assert torch.equal(got, cuda_mlpg.mlpg_oneshot_plain(b, *bands))
+
+
+def test_mlpg_utterance_cpu_tensors_take_the_plain_path():
+    feats, var = _fixture_stream("lf0", 9, seed=4)
+    means, variances = torch.from_numpy(feats), torch.from_numpy(var)
+    before = cuda_mlpg.ONESHOT.launches
+    got = cuda_mlpg.mlpg_utterance(means, variances)
+    assert cuda_mlpg.ONESHOT.launches == before
+    assert torch.equal(got, cuda_mlpg.mlpg_utterance_plain(means,
+                                                           variances))
+
