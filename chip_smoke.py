@@ -103,6 +103,29 @@ other error raises at once):
    with the original sp and vuv rebuilt from its parts (against the
    written wavs, and card against CPU by frame energy).  Wall seconds of
    each call and of the modular path's parts.
+10. The text front door.  (a) The duration pin recipe
+   (tests/integration/test_quality_pins.py:118-162): phone-level
+   questions from the port's ``QuestionLabelGen.gen_data``,
+   ``DurationModelTrainer`` with its full-width default model for 12
+   epochs from the JAX package's initial weights (``models/flax_init.py``
+   repeats the draw without JAX); Dur RMSE one-sided against the pin.
+   (b) The acoustic pin recipe ``RNNDYN-2_RELU_128-1_BiLSTM_64-1_FC_67``
+   (:76-107), 12 epochs from the JAX draw, counters reset just before
+   training and read just after (K7's projection, K4 and K5 must
+   launch); MCD, F0-RMSE, VDE and BAP one-sided against the pins; its
+   own synth's loudness (ROADMAP fault 3.7).  (c) ``TTSModel.run_DM_AM``
+   on the six fixture label files with phase 6's acoustic model and a
+   duration model trained on run_DM_AM's own phone questions, fused and
+   modular, counters and the native question matcher's count reset just
+   before each run and read just after: every duration at least 1
+   frame, each wav sum(durations) x 80 samples and finite, K3, the
+   projection and K2 (fused) or K1 (modular) launched, the matcher used;
+   wall seconds split into the front half and the synth.
+   (d) ``TTSModel.serve``: eight texts submitted at once through the
+   built-in front end; every future resolves, requests share batches,
+   and one request matches the port's CPU path on the same weights with
+   the card's noise draw by frame energy; latency per request and the
+   host/device split.
 
 The last three lines of standard output are the kernels JSON (every
 kernel with its bound, its plain version's and the library call's time),
@@ -233,6 +256,40 @@ WN_TOL = 2.0 ** -6
 # rounding (2**-9 relative) per layer, relative to the logits' largest
 # magnitude.
 WN_NET_TOL = WN_LAYERS * 2.0 ** -9
+
+# Phase 10, the text front door.  The quality-pin recipes
+# (tests/integration/test_quality_pins.py:76-162) at their published
+# settings: 12 epochs, batch 2, learning rate 0.002, 25% validation, the
+# best model kept, started from the JAX package's initial weights
+# (models/flax_init.py repeats its draw without JAX).  Scores are held
+# one-sided against the pins, read from that file's text, with the
+# tolerance the CPU tests hold the port to (tests/unit/
+# test_torch_quality_pins.py: RTOL).
+PIN_FILE = os.path.join(REPO, "tests", "integration", "test_quality_pins.py")
+PIN_TOL = 0.01
+PIN_EPOCHS = 12
+PIN_KERNELS = ("bilstm_proj", "bilstm_recurrence_train", "bilstm_bwd")
+QUESTION_FILE = os.path.join(FIXTURES, "questions-gen_dnn.hed")
+TEXT_FUSED_KERNELS = ("banded_solve", "bilstm_proj", "bilstm_recurrence")
+TEXT_MODULAR_KERNELS = ("mlpg_oneshot", "bilstm_proj", "bilstm_recurrence")
+# Texts served at once through TextToSpeechServer (the built-in front end):
+# those of tests/integration/test_tts_model.py.
+SERVE_TEXTS = ("the quick brown fox jumps over the lazy dog",
+               "speech synthesis with no external front end",
+               "a stitch in time saves nine",
+               "pack my box with five dozen jugs",
+               "how vexingly quick daft zebras jump",
+               "numbers like 42 are spelled out",
+               "hello world this is online serving",
+               "another request at the same time")
+# One served request on the card against the port's CPU path with the
+# card's noise draw, by 5 ms frame energy over the frames within 60 dB
+# of the loudest.  The model's outputs are bf16 and differ between the
+# two by an ulp (2**-7 at magnitudes below 2) of the normalised c0, which
+# the denormalisation scales by c0's standard deviation (8.35 on the
+# fixtures): the bound is that many nepers in dB, 20 log10(e) x 2**-7 x
+# std(c0), 0.57 dB.  Measured 0.047 dB on an H100.
+SERVE_C0_ULPS = 2.0 ** -7
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
 # the least time the card could take for a kernel's work is the larger of
@@ -1991,6 +2048,403 @@ def evaluate_against_cpu(torch, trainer, hp, ids, org_feats, post, wavs):
                 org_sp_vuv_card_vs_cpu_db=org_db)
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+def read_pins():
+    """(PINNED_ACOUSTIC, PINNED_DURATION_RMSE) from the pin file's text
+    (it imports the JAX package, so it is parsed, not imported)."""
+    import ast
+    with open(PIN_FILE) as f:
+        tree = ast.parse(f.read())
+    values = {}
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name) \
+                and node.targets[0].id in ("PINNED_ACOUSTIC",
+                                           "PINNED_DURATION_RMSE"):
+            values[node.targets[0].id] = ast.literal_eval(node.value)
+    return values["PINNED_ACOUSTIC"], values["PINNED_DURATION_RMSE"]
+
+
+def check_pinned(key, got, pinned):
+    ok = np.isfinite(got) and got <= pinned + max(abs(pinned) * PIN_TOL,
+                                                  1e-3)
+    log("  pin {}: {:.4f} (pin {}, one-sided tolerance {:.0%}){}".format(
+        key, got, pinned, PIN_TOL, "" if ok else "  <-- FAILED"))
+    if not ok:
+        fail("quality pin {}: {} > {} + {:.0%}".format(key, got, pinned,
+                                                       PIN_TOL))
+
+
+def pin_hparams(cls, device, out_dir, model_name):
+    hp = cls.create_hparams()
+    hp.device = str(device)
+    hp.out_dir = out_dir
+    hp.model_name = model_name
+    hp.epochs = PIN_EPOCHS
+    hp.batch_size_train = 2
+    hp.batch_size_val = 6
+    hp.learning_rate = 0.002
+    hp.seed = 1
+    hp.use_best_as_final_model = True
+    hp.test_set_perc = 0.0
+    hp.val_set_perc = 0.25
+    return hp
+
+
+def from_jax_draw(trainer):
+    """Load the JAX package's initial weights of the trainer's model."""
+    from idiaptts_torch.models import convert, flax_init
+    handler = trainer.model_handler
+    convert.load_flax_params(handler.model,
+                             flax_init.rnn_dyn_params(handler.model_config))
+
+
+def fixture_ids():
+    with open(os.path.join(FIXTURES, "file_id_list.txt")) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def pin_phone_questions(out_dir, ids):
+    """The duration pin recipe's inputs from the port's gen_data: the
+    frame questions of each phone's first frame, with min-max stats."""
+    from idiaptts_torch.data.normalisation import MinMaxExtractor
+    from idiaptts_torch.data.phonemes import PhonemeDurationLabelGen
+    from idiaptts_torch.data.questions import QuestionLabelGen
+    label_dict, _, _ = QuestionLabelGen.gen_data(
+        os.path.join(FIXTURES, "labels", "label_state_align"),
+        QUESTION_FILE, id_list=ids, return_dict=True)
+    os.makedirs(out_dir, exist_ok=True)
+    extractor = MinMaxExtractor()
+    for id_name, frames in label_dict.items():
+        dur = PhonemeDurationLabelGen.load_sample(
+            id_name, os.path.join(FIXTURES, "dur"))
+        phone_frames = dur.sum(axis=1).astype(np.int64)
+        first = np.minimum(np.cumsum(phone_frames) - phone_frames,
+                           len(frames) - 1)
+        extractor.add_sample(frames[first])
+        frames[first].astype(np.float32).tofile(
+            os.path.join(out_dir, id_name + ".questions"))
+    extractor.save(os.path.join(out_dir, "all"))
+    return out_dir
+
+
+def dm_am_phone_questions(out_dir, ids):
+    """run_DM_AM's own duration inputs: the question answers of each
+    phone of the fixture labels (no subphone columns), min-max stats."""
+    from idiaptts_torch.data.normalisation import MinMaxExtractor
+    from idiaptts_torch.data.questions import HTSLabelNormalisation
+    from idiaptts_torch.synth.tts_model import TTSModel
+    operator = HTSLabelNormalisation(QUESTION_FILE, add_frame_features=False,
+                                     subphone_feats="none")
+    os.makedirs(out_dir, exist_ok=True)
+    extractor = MinMaxExtractor()
+    for id_name in ids:
+        with open(os.path.join(FIXTURES, "labels", "label_state_align",
+                               id_name + ".lab")) as f:
+            labels = TTSModel.strip_timings([l for l in f if l.strip()])
+        q = TTSModel.phone_question_matrix(operator, labels)
+        extractor.add_sample(q)
+        q.tofile(os.path.join(out_dir, id_name + ".questions"))
+    extractor.save(os.path.join(out_dir, "all"))
+    return out_dir, operator.dict_size
+
+
+def train_duration(torch, device, workdir, name, q_dir, num_questions):
+    """DurationModelTrainer with its default full-width model on the card,
+    the pin recipe's settings, from the JAX draw; (trainer, hp, train s,
+    train losses)."""
+    from idiaptts_torch.train.duration import DurationModelTrainer
+    hp = pin_hparams(DurationModelTrainer, device, workdir, name)
+    hp.num_questions = num_questions
+    trainer = DurationModelTrainer(
+        hp, fixture_ids(), dir_phoneme_labels=q_dir,
+        dir_durations=os.path.join(FIXTURES, "dur"))
+    trainer.init(hp)
+    from_jax_draw(trainer)
+    (_, train_loss), seconds = _timed(torch, lambda: trainer.train(hp))
+    return trainer, hp, seconds, train_loss
+
+
+def duration_pin(torch, device, workdir, pinned):
+    """(a) The duration pin recipe on the card: Dur RMSE one-sided
+    against the pin."""
+    ids = fixture_ids()
+    _, _, num_q = load_corpus()
+    trainer, hp, seconds, losses = train_duration(
+        torch, device, workdir, "pin_dur",
+        pin_phone_questions(os.path.join(workdir, "pin_dur_q"), ids), num_q)
+    rmse, pearson = trainer.benchmark(hp, trainer.id_list_train)
+    log("  duration pin recipe: {} epochs in {:.2f} s, train loss {:.4f} "
+        "-> {:.4f}; Dur RMSE {:.4f}, Pearson {}".format(
+            PIN_EPOCHS, seconds, losses[0], losses[-1], float(rmse),
+            np.round(pearson, 4).tolist()))
+    check_pinned("dur_rmse", float(rmse), pinned)
+    return {"dur_rmse": float(rmse), "train_s": seconds}
+
+
+def acoustic_pin(torch, device, workdir, pinned):
+    """(b) The acoustic pin recipe on the card: 12 epochs with the launch
+    counters reset just before and read just after, the four scores
+    one-sided against the pins, and its synth's loudness (ROADMAP fault
+    3.7)."""
+    from idiaptts_torch.models.rnn_dyn import convert_legacy_string
+    from idiaptts_torch.ops import dispatch
+    from idiaptts_torch.train.acoustic import AcousticModelTrainer
+    _, _, num_q = load_corpus()
+    ids = fixture_ids()
+    hp = pin_hparams(AcousticModelTrainer, device, workdir, "pin_acoustic")
+    hp.num_questions = num_q
+    hp.num_coded_sps = NUM_SPS
+    hp.batch_size_benchmark = 6
+    hp.batch_size_synth = 6
+    hp.synth_fs = FS
+    trainer = AcousticModelTrainer(
+        hp, ids, dir_question_labels=os.path.join(FIXTURES, "questions"),
+        dir_world_features=os.path.join(FIXTURES, "WORLD"))
+    cfg = convert_legacy_string(NARROW_MODEL_STRING, num_q)
+    cfg.input_names = ("questions",)
+    cfg.output_names = ("pred_acoustic_features",)
+    trainer.init(hp, model_config=cfg)
+    from_jax_draw(trainer)
+    dispatch.reset_counts()
+    (_, losses), seconds = _timed(torch, lambda: trainer.train(hp))
+    launches = dispatch.counts()
+    log("  acoustic pin recipe {}: {} epochs in {:.2f} s, train loss "
+        "{:.4f} -> {:.4f}".format(NARROW_MODEL_STRING, PIN_EPOCHS, seconds,
+                                  losses[0], losses[-1]))
+    log("  launches during the pin recipe's training:",
+        json.dumps(launches))
+    require_launches(launches, PIN_KERNELS, "pin training")
+    scores = trainer.benchmark(hp, trainer.id_list_train)
+    got = dict(zip(("mcd", "f0_rmse", "vde", "bap"),
+                   (float(v) for v in scores)))
+    for key in ("mcd", "f0_rmse", "vde", "bap"):
+        check_pinned(key, got[key], pinned[key])
+    # Fault 3.7: is a model trained this long audible?  Its own fused
+    # synth, and the statics that decide how loud it is.
+    hp.synth_dir = os.path.join(workdir, "pin_synth")
+    paths = trainer.synth(hp, ids)
+    post = trainer.forward(hp, ids)
+    loud = {}
+    for i in ids:
+        raw, _ = _wav_ok(paths[i], len(post[i]["pred_acoustic_features"]))
+        c0, _, voiced, bap_uv = _witness(post[i]["pred_acoustic_features"])
+        loud[i] = {"rms": float(np.sqrt(np.mean(raw.astype(np.float64)
+                                                ** 2))),
+                   "peak": float(np.abs(raw).max()), "c0_mean": c0,
+                   "voiced_share": voiced, "unvoiced_bap": bap_uv}
+        log("  pin model synth {}: rms {:.3e}, peak {:.3e}; c0 mean {:.2f}, "
+            "voiced share {:.3f}, unvoiced bap {:.2f}".format(
+                i, loud[i]["rms"], loud[i]["peak"], c0, voiced, bap_uv))
+    audible = sum(v["peak"] > 1e-3 for v in loud.values())
+    log("  pin model synth: {} of {} utterances audible (peak > 1e-3)"
+        .format(audible, len(ids)))
+    return {"scores": got, "train_s": seconds, "launches": launches,
+            "loudness": loud, "audible": audible}
+
+
+def _aligned_durations(path):
+    """A state-aligned label file -> (P, 5) frames."""
+    frames = []
+    with open(path) as f:
+        for line in f:
+            start, end, label = line.split()
+            if label.endswith("[2]"):
+                frames.append([])
+            frames[-1].append((int(end) - int(start)) // 50000)
+    return np.array(frames)
+
+
+def text_to_wav(torch, hp, workdir, ids):
+    """(c) run_DM_AM on the fixture labels, fused and modular, counters
+    and the native matcher's count reset just before each run and read
+    just after; wall seconds split into the front half and the synth."""
+    from idiaptts_torch.data import native_questions
+    from idiaptts_torch.ops import dispatch
+    from idiaptts_torch.synth.tts_model import TTSModel
+    trainer = hp.acoustic_trainer
+    plain_synth = trainer.synth
+    out = {}
+    for mode, fused, kernels in (("fused", True, TEXT_FUSED_KERNELS),
+                                 ("modular", False, TEXT_MODULAR_KERNELS)):
+        hp.use_fused_synth = fused
+        hp.synth_dir = os.path.join(workdir, "text_" + mode)
+        synth_s = []
+
+        def timed_synth(*args, **kwargs):
+            result, seconds = _timed(torch, lambda: plain_synth(*args,
+                                                                **kwargs))
+            synth_s.append(seconds)
+            return result
+
+        trainer.synth = timed_synth
+        native_questions.reset_count()
+        dispatch.reset_counts()
+        try:
+            paths, total = _timed(torch, lambda: TTSModel.run_DM_AM(
+                hp, label_dir=os.path.join(FIXTURES, "labels",
+                                           "label_state_align"),
+                id_list=ids))
+        finally:
+            del trainer.synth
+        launches = dispatch.counts()
+        matched = native_questions.matches
+        log("  run_DM_AM {}: {:.3f} s wall, front half {:.3f} s, synth "
+            "{:.3f} s; native matcher: {} labels".format(
+                mode, total, total - synth_s[0], synth_s[0], matched))
+        log("  launches during run_DM_AM {}: {}".format(
+            mode, json.dumps(launches)))
+        require_launches(launches, kernels, "text ({})".format(mode))
+        if not matched:
+            fail("run_DM_AM {}: the native question matcher was not used"
+                 .format(mode))
+        if sorted(paths) != sorted(ids):
+            fail("run_DM_AM {} wrote {}".format(mode, sorted(paths)))
+        frames = {}
+        for i in ids:
+            dur = _aligned_durations(os.path.join(
+                hp.synth_dir, "label_state_align", i + ".lab"))
+            frames[i] = int(dur.sum())
+            raw, ok = _wav_ok(paths[i], frames[i])
+            if not (dur.min() >= 1 and ok):
+                fail("run_DM_AM {} {}: min duration {}, {} samples (want "
+                     "{} finite)".format(mode, i, dur.min(), raw.size,
+                                         frames[i] * 80))
+        out[mode] = {"wall_s": total, "front_half_s": total - synth_s[0],
+                     "synth_s": synth_s[0], "launches": launches,
+                     "native_matches": matched, "frames": frames}
+    hp.use_fused_synth = True
+    return out
+
+
+def serve_text(torch, hp, workdir):
+    """(d) TTSModel.serve: SERVE_TEXTS submitted at once, each future
+    resolving to a finite waveform; requests share batches; per-request
+    latency and the host/device split; one request against the port's
+    CPU path on the same weights with the card's noise draw, by frame
+    energy."""
+    from idiaptts_torch.ops import dispatch
+    from idiaptts_torch.ops.world.synthesis import noise_draw
+    from idiaptts_torch.synth.tts_model import TTSModel
+    hp.synth_dir = os.path.join(workdir, "text_serve")
+    server = TTSModel.serve(hp, max_batch=16, max_wait_ms=200.0)
+
+    def request(text):
+        t0 = time.perf_counter()
+        wav = server.submit(text).result(timeout=900)
+        return wav, time.perf_counter() - t0
+
+    dispatch.reset_counts()
+    try:
+        with ThreadPoolExecutor(len(SERVE_TEXTS)) as pool:
+            results = list(pool.map(request, SERVE_TEXTS))
+        torch.cuda.synchronize()
+        launches = dispatch.counts()
+        stats = server.stats()
+        questions = server.front_half(SERVE_TEXTS[0])
+    finally:
+        server.shutdown()
+    wavs = [w for w, _ in results]
+    latency = [s for _, s in results]
+    log("  served {} texts: {}".format(len(wavs), json.dumps(stats)))
+    log("  latency per request s: {}; front half (host) {:.4f} s a "
+        "request; synthesis batches {:.4f} s a batch".format(
+            np.round(latency, 4).tolist(),
+            stats["front_seconds"] / stats["requests"],
+            stats["busy_seconds"] / max(stats["batches"], 1)))
+    log("  launches while serving text:", json.dumps(launches))
+    require_launches(launches, TEXT_FUSED_KERNELS, "text serving")
+    if not all(w.size > 0 and np.all(np.isfinite(w)) for w in wavs):
+        fail("a served text gave an empty or non-finite waveform")
+    if not stats["mean_batch_occupancy"] > 1.0:
+        fail("served texts did not share batches: {}".format(stats))
+    # The first request on the CPU path: the same questions (the card's
+    # durations), the same weights, the card's noise draw.
+    trainer = hp.acoustic_trainer
+    pipeline, params, _ = trainer.build_serving(hp)
+    cpu = cpu_trainer(trainer)
+    cpu_pipe, cpu_params, _ = cpu.build_serving(hp)
+    batch, lengths, f0c = cpu_pipe.prepare([questions])
+    T = batch.shape[1]
+    nb_small = max(min(pipeline.num_bins, 129),
+                   pipeline.hop // 2 + 1 + (pipeline.hop % 2))
+    z = noise_draw(T, nb_small, torch.Generator(
+        device=pipeline.device).manual_seed(0), pipeline.device).cpu()
+    with torch.inference_mode():
+        out = cpu_pipe.model_stage(cpu_params, batch, lengths)
+        sm, vuv = cpu_pipe.mlpg_stage(out, lengths, *cpu_pipe.factors_for(T))
+        w_cpu = cpu_pipe.vocoder_stage(sm, vuv, f0c, z=z)[0].numpy()
+    w_cpu = w_cpu[:len(questions) * pipeline.hop]
+    if w_cpu.shape != wavs[0].shape:
+        fail("served text 0: {} samples on the card, {} on the CPU path"
+             .format(wavs[0].shape, w_cpu.shape))
+        db = float("inf")
+    else:
+        db = _max_frame_db([wavs[0]], [w_cpu])
+    c0_std = float(np.asarray(
+        trainer.datareaders["cmp_features"].norm_params[1]).reshape(-1)[0])
+    _check("served text vs CPU path (frame energy, dB)", db,
+           20.0 * np.log10(np.e) * SERVE_C0_ULPS * c0_std,
+           "T={}".format(len(questions)))
+    return {"latency_s": latency, "stats": stats, "launches": launches,
+            "cpu_frame_db": db}
+
+
+def text_front_door(torch, device, card, workdir, trainer, hp):
+    """Phase 10: (a) the duration pin, (b) the acoustic pin, (c) run_DM_AM
+    and (d) TextToSpeechServer with phase 6's acoustic model and a
+    duration model trained on run_DM_AM's own phone questions."""
+    pin_acoustic, pin_dur = read_pins()
+    log("== phase 10 (a): duration pin recipe at full width on {} [{}]"
+        .format(device, card))
+    dur_pin = duration_pin(torch, device, workdir, pin_dur)
+    torch.cuda.empty_cache()
+    log("== phase 10 (b): acoustic pin recipe {} on {} [{}]".format(
+        NARROW_MODEL_STRING, device, card))
+    ac_pin = acoustic_pin(torch, device, workdir, pin_acoustic)
+    torch.cuda.empty_cache()
+    log("== phase 10 (c): run_DM_AM on the fixture labels with phase 6's "
+        "model [{}]".format(card))
+    # The pin recipe's inputs carry the 9 subphone columns of each
+    # phone's first frame; run_DM_AM feeds its duration model the
+    # answers alone, so (c) and (d) use one trained on those.
+    ids = fixture_ids()
+    q_dir, dict_size = dm_am_phone_questions(
+        os.path.join(workdir, "dm_am_dur_q"), ids)
+    dur_trainer, _, dur_s, _ = train_duration(
+        torch, device, workdir, "dm_am_dur", q_dir, dict_size)
+    log("  run_DM_AM's duration model ({} inputs): {} epochs in {:.2f} s"
+        .format(dict_size, PIN_EPOCHS, dur_s))
+    hp.add_hparams(duration_trainer=dur_trainer, acoustic_trainer=trainer)
+    hp.question_file = QUESTION_FILE
+    hp.batch_size_synth = len(ids)
+    text = text_to_wav(torch, hp, workdir, ids)
+    log("== phase 10 (d): TextToSpeechServer, {} texts at once [{}]".format(
+        len(SERVE_TEXTS), card))
+    served = serve_text(torch, hp, workdir)
+    launches = {k: text["fused"]["launches"].get(k, 0)
+                + text["modular"]["launches"].get(k, 0)
+                + served["launches"].get(k, 0)
+                for k in KERNEL_SOURCES}
+    log("  phase 10 times [{}]: {}".format(card, json.dumps({
+        "run_DM_AM": {m: {k: text[m][k] for k in ("wall_s", "front_half_s",
+                                                   "synth_s")}
+                      for m in ("fused", "modular")},
+        "serve_latency_s": served["latency_s"],
+        "serve_front_s_per_request": served["stats"]["front_seconds"]
+        / served["stats"]["requests"],
+        "serve_busy_s_per_batch": served["stats"]["busy_seconds"]
+        / max(served["stats"]["batches"], 1)})))
+    log("  phase 10 pins [{}]: {}".format(card, json.dumps({
+        "duration": dur_pin, "acoustic": ac_pin["scores"],
+        "pins": {"acoustic": pin_acoustic, "dur_rmse": pin_dur},
+        "tolerance": PIN_TOL})))
+    return {"launches": launches, "pin_launches": ac_pin["launches"],
+            "dur_pin": dur_pin, "acoustic_pin": ac_pin, "text": text,
+            "served": served}
+
+
 def require_launches(launches, names, path):
     """Every kernel of a path must have launched during its run."""
     missing = [k for k in names if launches.get(k, 0) < 1]
@@ -2103,6 +2557,8 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
         "AcousticModelTrainer on {}".format(device))
     eval_launches, estats = evaluate(torch, device, trainer, hp, workdir,
                                      feats)
+    torch.cuda.empty_cache()
+    tfd = text_front_door(torch, device, card, workdir, trainer, hp)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -2122,7 +2578,9 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
                    "train": train_launches[name],
                    "train_narrow": narrow["launches"][name],
                    "vocode": vocode_launches[name],
-                   "evaluate": eval_launches[name]}
+                   "evaluate": eval_launches[name],
+                   "train_pins": tfd["pin_launches"][name],
+                   "text": tfd["launches"][name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -2144,6 +2602,17 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
             entry["vocode_path"] = vstats
         if name == "mlpg_oneshot":
             entry["evaluate_path"] = estats
+        if name == "banded_solve":
+            entry["text_path"] = {
+                "run_DM_AM": {m: {k: tfd["text"][m][k] for k in (
+                    "wall_s", "front_half_s", "synth_s", "native_matches")}
+                    for m in ("fused", "modular")},
+                "serve": {k: tfd["served"][k] for k in (
+                    "latency_s", "stats", "cpu_frame_db")}}
+        if name == "bilstm_bwd":
+            entry["pins"] = {"duration": tfd["dur_pin"],
+                             "acoustic": tfd["acoustic_pin"]["scores"],
+                             "audible": tfd["acoustic_pin"]["audible"]}
         if name == "bilstm_recurrence":
             entry["narrow"] = kres[name]["narrow"]
         if name == "banded_solve":

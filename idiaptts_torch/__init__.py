@@ -1,14 +1,20 @@
 """idiaptts_torch — the PyTorch/CUDA port of idiaptts_tpu.
 
-The label -> waveform serving path runs here on an NVIDIA Hopper GPU,
-with every Pallas kernel of that path replaced by a hand-written CUDA
-kernel (``csrc/``).  The JAX package ``idiaptts_tpu`` stays the
-reference the port is tested against; its JAX-free modules (question
-features, normalisation, the synthesis server, model configs) are
-reused by import.
+Text -> waveform synthesis, training, evaluation and vocoding run here
+on an NVIDIA Hopper GPU, with every Pallas kernel of the JAX package
+replaced by a hand-written CUDA kernel (``csrc/``).  The JAX package
+``idiaptts_tpu`` stays the reference the port is tested against; the
+port imports nothing of it and keeps its own copies of its JAX-free
+modules.
 
 Layer map (mirrors idiaptts_tpu):
-  ops/       — kernel dispatch, MLPG, BiLSTM kernels, mcep, WORLD vocoder
-  models/    — rnn_dyn acoustic model, named-dict wrapper, weight converter
-  synth/     — the fused label -> waveform pipeline
+  ops/       — kernel dispatch, MLPG, BiLSTM and WaveNet kernels, mcep,
+               WORLD vocoder
+  models/    — rnn_dyn and WaveNet models, named-dict wrapper, weight
+               converter
+  data/      — readers, datasets, normalisation, question and duration
+               label generation (with the native question matcher)
+  train/     — model handler, trainers (acoustic, duration)
+  synth/     — the fused label -> waveform pipeline, the servers, the
+               built-in text front end and TTSModel (text -> wav)
 """

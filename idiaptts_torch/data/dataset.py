@@ -1,9 +1,10 @@
-"""Dataset layer: the port's copy of ``idiaptts_tpu/data/dataset.py``
-without the windowing dataset.
+"""Dataset layer: the port's copy of ``idiaptts_tpu/data/dataset.py``.
 
 ``DatareadersDataset`` merges several readers per utterance
 (duplicate-key detection, ``match_length`` trims, ``max_frames`` crops
-propagated to matched readers).  ``collate_batch`` pads every batch to a
+propagated to matched readers).  ``WindowingDatareadersDataset`` cuts
+each utterance into fixed-size windows and hands the trainer's batcher
+one work item per window.  ``collate_batch`` pads every batch to a
 length bucket and emits explicit sequence masks for the masked losses;
 the buckets bound the set of shapes the kernels see, as they bounded
 XLA's compiled programs.  ``batch_decollate`` undoes it.
@@ -148,6 +149,64 @@ class DatareadersDataset:
                     group[id(other)] = other
                     frontier.append(other)
         return list(group.values())
+
+
+class WindowingDatareadersDataset(DatareadersDataset):
+    """Fixed-size windows over long utterances, deterministic.
+    ``work_items``/``get_work_item`` feed the trainer's batcher one item
+    per window; ``__iter__`` yields the same windows."""
+
+    def __init__(self, id_list, datareaders, window_size=500,
+                 window_step=50, **kwargs):
+        super().__init__(id_list, datareaders, **kwargs)
+        self.window_size = window_size
+        self.window_step = window_step
+
+    @staticmethod
+    def _seq_length(output):
+        """Windowable length: the shortest sequence feature (length-1
+        per-utterance statics such as speaker ids do not cap it)."""
+        lens = [len(v) for k, v in output.items()
+                if k != "_id_list" and np.ndim(v) >= 1 and len(v) > 1]
+        return min(lens) if lens else 1
+
+    def _num_windows(self, length):
+        return max(1, 1 + math.ceil((length - self.window_size)
+                                    / self.window_step))
+
+    def _window(self, output, w, num_windows):
+        length = self._seq_length(output)
+        start = w * self.window_step
+        end = min(start + self.window_size, length)
+        window = {k: (v if k == "_id_list"
+                      or np.ndim(v) < 1 or len(v) <= 1
+                      else v[start:end])
+                  for k, v in output.items()}
+        window["_window_idx"] = w
+        window["_num_windows"] = num_windows
+        return window
+
+    def work_items(self, id_list):
+        items = []
+        for id_name in id_list:
+            output, _ = self.get_id_name(id_name)
+            nw = self._num_windows(self._seq_length(output))
+            items.extend((id_name, w, nw) for w in range(nw))
+        return items
+
+    def get_work_item(self, item):
+        if not isinstance(item, tuple):
+            return self.get_id_name(item)
+        id_name, w, nw = item
+        output, _ = self.get_id_name(id_name)
+        return self._window(output, w, nw), self
+
+    def __iter__(self):
+        for id_name in self.id_list:
+            output, _ = self.get_id_name(id_name)
+            num_windows = self._num_windows(self._seq_length(output))
+            for w in range(num_windows):
+                yield self._window(output, w, num_windows), self
 
 
 DEFAULT_BUCKET_BOUNDARIES = (128, 256, 512, 1024, 2048, 4096)

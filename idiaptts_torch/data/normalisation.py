@@ -1,9 +1,12 @@
-"""Normalisation statistics: the loading half of
-``idiaptts_tpu/data/normalisation.py``.
+"""Normalisation statistics: the port's copy of
+``idiaptts_tpu/data/normalisation.py`` without the subset combination.
 
-The port reads statistics that the JAX package (or the reference) wrote;
-accumulating and saving them stays with the feature-extraction slice
-(ROADMAP.md queue 1 item 10).  File formats:
+The loaders read statistics that the JAX package (or the reference)
+wrote.  :class:`MeanStdDevExtractor` and :class:`MinMaxExtractor` also
+accumulate statistics online (``add_sample``, ``get_params``) and save
+them as npz, byte for byte as the JAX package does: question and
+duration generation use them.  Accumulating the covariance waits for
+feature extraction (ROADMAP.md queue 1 item 5).  File formats:
 
 * ``*-mean-std_dev.bin``  : int32 ``sum_length`` header, float64 ``(2, D)``
   (mean row, std-dev row).
@@ -11,7 +14,8 @@ accumulating and saving them stays with the feature-extraction slice
   float64 ``(size, D)`` where row 0 is the mean and rows 1.. the covariance.
 * ``*-min-max.bin``        : headerless float64 ``(2, D)`` (min, max).
 * npz archives with keys ``mean``/``std_dev``, ``mean``/``covariance`` or
-  ``min``/``max``.
+  ``min``/``max`` (each with ``sum_length``), and ``*-stats`` with
+  ``sum_frames``/``sum_squared_frames``.
 """
 
 import os
@@ -28,10 +32,30 @@ def _ensure_npz(file_path):
     return path
 
 
-class MeanStdDevExtractor:
-    """Mean / standard-deviation normalisation."""
+def _prefix(filename):
+    """'dir/name' -> 'dir/name-', 'dir/' -> 'dir/'."""
+    if filename is not None and os.path.basename(filename) != "":
+        return filename + "-"
+    return filename
 
+
+def _save_npz(filename, sum_length, stats, datatype=np.float64):
+    out = {k: np.atleast_1d(v).astype(datatype, copy=False)
+           for k, v in stats.items()}
+    out["sum_length"] = np.array(sum_length, dtype=np.int64)
+    np.savez(filename, **out)
+
+
+class MeanStdDevExtractor:
+    """Online mean / standard deviation accumulator."""
+
+    file_name_stats = "stats"
     file_name_appendix = "mean-std_dev"
+
+    def __init__(self):
+        self.sum_length = 0
+        self.sum_frames = 0
+        self.sum_squared_frames = 0
 
     @staticmethod
     def _normalise(feature, mean, std_dev):
@@ -40,6 +64,36 @@ class MeanStdDevExtractor:
     @staticmethod
     def _denormalise(feature, mean, std_dev):
         return feature * std_dev + mean
+
+    def add_sample(self, sample):
+        if sample is None:
+            raise ValueError("add_sample needs a sample, got None")
+        sample = np.asarray(sample)
+        self.sum_length += len(sample)
+        self.sum_frames = self.sum_frames + np.sum(sample, axis=0)
+        self.sum_squared_frames = (self.sum_squared_frames
+                                   + np.sum(sample ** 2, axis=0))
+
+    def get_params(self):
+        mean = self.sum_frames / self.sum_length
+        var = self.sum_squared_frames / self.sum_length - mean ** 2
+        std_dev = np.sqrt(np.maximum(var, 0.0))
+        return np.atleast_1d(mean), np.atleast_1d(std_dev)
+
+    def save(self, filename, datatype=np.float64):
+        self.save_stats(filename, datatype)
+        self.save_mean_std_dev(filename, datatype)
+
+    def save_stats(self, filename, datatype=np.float64):
+        _save_npz(_prefix(filename) + self.file_name_stats, self.sum_length,
+                  {"sum_frames": self.sum_frames,
+                   "sum_squared_frames": self.sum_squared_frames}, datatype)
+
+    def save_mean_std_dev(self, filename, datatype=np.float64):
+        mean, std_dev = self.get_params()
+        _save_npz(_prefix(filename) + self.file_name_appendix,
+                  self.sum_length, {"mean": mean, "std_dev": std_dev},
+                  datatype)
 
     @staticmethod
     def load(file_path, datatype=np.float64):
@@ -94,9 +148,13 @@ class MeanCovarianceExtractor:
 
 
 class MinMaxExtractor:
-    """Per-dimension min/max normalisation (question features)."""
+    """Online per-dimension min/max accumulator (question normalisation)."""
 
     file_name_appendix = "min-max"
+
+    def __init__(self):
+        self.combined_min = None
+        self.combined_max = None
 
     @staticmethod
     def _fix_range(range_):
@@ -111,6 +169,27 @@ class MinMaxExtractor:
     @staticmethod
     def _denormalise(feature, min_, max_):
         return feature * MinMaxExtractor._fix_range(max_ - min_) + min_
+
+    def add_sample(self, sample):
+        if sample is None:
+            raise ValueError("add_sample needs a sample, got None")
+        sample = np.asarray(sample)
+        cur_min = sample.min(axis=0)
+        cur_max = sample.max(axis=0)
+        if self.combined_min is None:
+            self.combined_min, self.combined_max = cur_min, cur_max
+        else:
+            self.combined_min = np.minimum(self.combined_min, cur_min)
+            self.combined_max = np.maximum(self.combined_max, cur_max)
+
+    def get_params(self):
+        return (np.atleast_1d(self.combined_min),
+                np.atleast_1d(self.combined_max))
+
+    def save(self, filename, datatype=np.float64):
+        vmin, vmax = self.get_params()
+        _save_npz(_prefix(filename) + self.file_name_appendix, 0,
+                  {"min": vmin, "max": vmax}, datatype)
 
     @staticmethod
     def load(file_path, datatype=np.float64):

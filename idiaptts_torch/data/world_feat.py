@@ -16,7 +16,7 @@ then per-stream MLPG through ``MLPG.generation`` (the one-shot solve
 kernel) on the reader's ``device`` (``"cuda"`` unless the config says
 ``"cpu"``), three solves per utterance (coded spectrum, lf0, bap).
 
-Not ported yet (ROADMAP.md queue 1 item 10): extraction from audio
+Not ported yet (ROADMAP.md queue 1 item 5): extraction from audio
 (``gen_data``) and the non-cepstral spectrum decoding (``decode_sp``,
 ``world_features_to_raw``).
 """
@@ -35,7 +35,7 @@ logger = logging.getLogger(__name__)
 
 _LATER_EXTRACT = ("WORLD feature extraction and non-cepstral spectrum "
                   "decoding are not ported yet; ROADMAP.md queue 1 item "
-                  "10 ports them")
+                  "5 ports them")
 
 
 class WorldFeatLabelGen(NpzDataReader, LabelGen):

@@ -39,7 +39,7 @@ from idiaptts_torch.ops.cuda_lstm import BiLSTMLayerFn, bilstm_layer_tmajor
 
 IDENTIFIER = "RNNDYN"
 
-_LATER = ("is not ported yet; ROADMAP.md queue 1 item 6 (the rest of the "
+_LATER = ("is not ported yet; ROADMAP.md queue 1 item 4 (the rest of the "
           "serving surface) ports it")
 
 _NONLINS = {

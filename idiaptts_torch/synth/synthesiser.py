@@ -14,7 +14,7 @@ per utterance, applies the optional Merlin post-filter to the coded
 spectrum, upsamples the features to the sample rate and vocodes every
 utterance in one padded batch through :class:`WaveNetVocoder` (one
 sampler launch on the card), writing one wav file per utterance cut to
-its length.  Not ported yet (ROADMAP.md queue 1 item 10): Griffin-Lim
+its length.  Not ported yet (ROADMAP.md queue 1 item 5): Griffin-Lim
 and the non-cepstral ``sp_type`` codings (mfbanks, amp_sp), which need
 the STFT ops.
 """
@@ -34,7 +34,7 @@ from idiaptts_torch.synth.pipeline import BatchedWorldSynth
 
 logger = logging.getLogger(__name__)
 
-_LATER_STFT = ("is not ported yet; ROADMAP.md queue 1 item 10 (STFT and "
+_LATER_STFT = ("is not ported yet; ROADMAP.md queue 1 item 5 (STFT and "
                "feature extraction ops) ports it")
 
 

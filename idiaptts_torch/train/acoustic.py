@@ -17,7 +17,7 @@ the target, the Interspeech'18 model ``RNNDYN-2_RELU_1024-3_BiLSTM_512-
 - ``serve`` puts a ``SynthesisServer`` over the fused pipeline.
 
 Everything runs on ``hparams.device`` (``"cuda"`` unless set to
-``"cpu"``).  Griffin-Lim raises (ROADMAP.md queue 1 item 10).
+``"cpu"``).  Griffin-Lim raises (ROADMAP.md queue 1 item 5).
 """
 
 import numpy as np
@@ -246,7 +246,7 @@ class AcousticModelTrainer(ModularTrainer):
         if input_names != ("questions",):
             raise NotImplementedError(
                 "serving a model with inputs {} is not ported yet; "
-                "ROADMAP.md queue 1 item 6 (EMB groups) ports it".format(
+                "ROADMAP.md queue 1 item 4 (EMB groups) ports it".format(
                     input_names))
 
         def load_inputs(id_name):

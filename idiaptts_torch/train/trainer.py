@@ -16,9 +16,13 @@ the reader's device), then hand the results to the task trainer's
 ``compute_score`` or ``gen_waveform``.  ``copy_synth`` synthesises from
 the readers' original features.
 
+``hparams.dataset_type`` picks ``DatareadersDataset`` (the default) or
+``WindowingDatareadersDataset``, whose windows the batcher takes as its
+work items.
+
 Not ported yet: the figure front doors (``gen_figure``, which needs the
-plotter, ROADMAP.md queue 1 item 12), the windowing dataset (item 11),
-TensorBoard logging and the profiler hook.
+plotter, ROADMAP.md queue 1 item 2), TensorBoard logging and the
+profiler hook.
 """
 
 import copy
@@ -33,13 +37,14 @@ import time
 import numpy as np
 
 from idiaptts_torch.data.dataset import (DatareadersDataset,
+                                         WindowingDatareadersDataset,
                                          batch_decollate, collate_batch)
 from idiaptts_torch.hparams import ExtendedHParams
 from idiaptts_torch.train.handler import ModularModelHandler
 
 logger = logging.getLogger(__name__)
 
-_LATER_FIGURE = ("gen_figure is not ported yet; ROADMAP.md queue 1 item 12 "
+_LATER_FIGURE = ("gen_figure is not ported yet; ROADMAP.md queue 1 item 2 "
                  "(utils/plotter.py) ports it")
 
 
@@ -161,15 +166,16 @@ class ModularTrainer:
             raise ValueError("No datareaders configured: set up "
                              "DataReaderConfigs before _setup_datasets.")
         dataset_type = hparams.get("dataset_type", "DatareadersDataset")
-        if dataset_type != "DatareadersDataset":
-            raise NotImplementedError(
-                "dataset_type {} is not ported yet; ROADMAP.md queue 1 "
-                "item 11 ports the windowing dataset".format(dataset_type))
-        self.dataset_train = DatareadersDataset(self.id_list_train, readers)
-        self.dataset_val = DatareadersDataset(self.id_list_val, readers,
-                                              random_select=False)
-        self.dataset_test = DatareadersDataset(self.id_list_test, readers,
-                                               random_select=False)
+        if dataset_type in ("WindowingDatareadersDataset",
+                            "PyTorchWindowingDatareadersDataset"):
+            cls = WindowingDatareadersDataset
+        else:
+            cls = DatareadersDataset
+        self.dataset_train = cls(self.id_list_train, readers)
+        self.dataset_val = cls(self.id_list_val, readers,
+                               random_select=False)
+        self.dataset_test = cls(self.id_list_test, readers,
+                                random_select=False)
 
     def _example_batch(self, hparams, id_list=None):
         ids = id_list or (self.id_list_train or self.id_list_val
@@ -188,16 +194,22 @@ class ModularTrainer:
                  prefetch=2):
         """Collated batches, produced on a background thread ``prefetch``
         batches ahead so host loading overlaps the device's work.  A
-        producer error is re-raised to the consumer."""
-        ids = list(id_list)
+        producer error is re-raised to the consumer.  A dataset with
+        ``work_items`` (the windowing dataset: one item per window) is
+        batched over its items."""
+        if hasattr(dataset, "work_items"):
+            ids = list(dataset.work_items(id_list))
+            fetch = dataset.get_work_item
+        else:
+            ids = list(id_list)
+            fetch = dataset.get_id_name
         if shuffle:
             random.Random(seed).shuffle(ids)
 
         def produce():
             for start in range(0, len(ids), batch_size):
                 chunk = ids[start:start + batch_size]
-                yield collate_batch([dataset.get_id_name(i)[0]
-                                     for i in chunk])
+                yield collate_batch([fetch(i)[0] for i in chunk])
 
         if not prefetch:
             yield from produce()

@@ -36,6 +36,7 @@ MODULES = [
     "idiaptts_torch.models.rnn_dyn",
     "idiaptts_torch.models.wavenet",
     "idiaptts_torch.models.convert",
+    "idiaptts_torch.models.flax_init",
     "idiaptts_torch.synth.pipeline",
     "idiaptts_torch.synth.server",
     "idiaptts_torch.synth.synthesiser",
@@ -45,11 +46,17 @@ MODULES = [
     "idiaptts_torch.data.dataset",
     "idiaptts_torch.data.questions",
     "idiaptts_torch.data.world_feat",
+    "idiaptts_torch.data.textgrid",
+    "idiaptts_torch.data.native_questions",
+    "idiaptts_torch.data.phonemes",
     "idiaptts_torch.train.schedulers",
     "idiaptts_torch.train.model_handler_base",
     "idiaptts_torch.train.handler",
     "idiaptts_torch.train.trainer",
     "idiaptts_torch.train.acoustic",
+    "idiaptts_torch.train.duration",
+    "idiaptts_torch.synth.frontend",
+    "idiaptts_torch.synth.tts_model",
     "chip_smoke",
     "probe_bilstm_proj",
 ]
