@@ -13,8 +13,9 @@ A flat typed key/value store where
 The default set is the JAX package's, with its mesh keys
 (``model_parallel``, ``use_shard_map``, ``mesh_shape``, ``data_axis``)
 replaced by ``device`` (``"cuda"``; raises without CUDA unless set to
-``"cpu"``) and ``bf16_residuals`` (the BiLSTM training residuals' type,
-float32 unless set).
+``"cpu"``) and ``bf16_residuals`` (the BiLSTM training residuals' type:
+by default bf16 above 32 batch rows, as the JAX handler chooses, and
+float32 otherwise; True or False overrides).
 """
 
 import ast
@@ -232,7 +233,9 @@ class ExtendedHParams:
             use_gpu=False,           # kept for API compat
             num_devices=1,
             device="cuda",           # where the model trains and infers
-            bf16_residuals=False,    # BiLSTM training residuals in bf16
+            # BiLSTM training residuals in bf16: None follows the JAX
+            # handler (bf16 above 32 batch rows), True/False override it.
+            bf16_residuals=None,
             dtype="float32",         # parameter dtype
             compute_dtype="bfloat16",
             num_coded_sps=60,

@@ -92,8 +92,9 @@ def _port_class_path(module_name, qualname):
     if key not in _PORTED:
         raise NotImplementedError(
             "config class {}:{} has no counterpart in idiaptts_torch yet; "
-            "ROADMAP.md queue 1 items 6 and 11 port the other model "
-            "types".format(module_name, qualname))
+            "ROADMAP.md queue 1 item 7 ports the other model types "
+            "(models/enc_dec.py, intonation.py, vtln.py, wrappers.py and "
+            "the rest of named.py)".format(module_name, qualname))
     return _PORTED[key]
 
 

@@ -1,31 +1,41 @@
 """Weight conversion between the JAX package's models (the rnn_dyn
 acoustic model and the WaveNet vocoder) and the port's, both ways.
 
-The JAX model's flax parameter tree, given as nested dicts of numpy
-arrays, becomes the port's state dict (:func:`flax_to_state_dict`), and
-back (:func:`state_dict_to_flax`).  The port names its parameters
-after the flax tree, so the conversion is a flattening with two
-adjustments:
+The JAX model's flax variables, given as nested dicts of numpy arrays,
+become the port's state dict (:func:`flax_to_state_dict`), and back
+(:func:`state_dict_to_flax`).  The port names its parameters after the
+flax tree, so the conversion is a flattening with three adjustments:
 
 - the ``params`` collection root is dropped;
+- the ``batch_stats`` collection (flax BatchNorm's running ``mean`` and
+  ``var``) becomes the port's buffers of the same names, merged into the
+  state dict beside the parameters;
 - the JAX ``NamedForwardWrapper`` wraps its core in a ``_CallAdapter``
   (``wrapped/inner/...``), which the port does not need
   (``wrapped....``).
 
-Covered leaves: the Dense ``g{i}_Linear_{j}`` ``kernel (in, out)`` and
-``bias (out,)`` (``rnn_dyn.py:396-401``) and ``_BiFastLSTM``'s
-``Wx (2, D, 4F)``, ``Wh (2, F, 4F)`` and ``b (2, 4F)`` under
-``g{i}_LSTM/bi{layer}`` (``rnn_dyn.py:172-176``); WaveNet's
+Covered leaves, all in flax's layouts, so no leaf is transposed: the
+Dense ``kernel (in, out)`` and ``bias (out,)`` of ``g{i}_Linear_{j}``,
+of the GRU cells' ``ir``/``iz``/``in``/``hr``/``hz``/``hn`` and the
+simple cells' ``i``/``h`` (``g{i}_GRU/fwd{l}``, ``bwd{l}``) and of the
+VAE's ``mu``/``logvar``; ``_BiFastLSTM``'s ``Wx (2, D, 4F)``, ``Wh (2, F,
+4F)`` and ``b (2, 4F)`` (``g{i}_LSTM/bi{l}``) and ``_FastLSTM``'s ``Wx
+(D, 4F)``, ``Wh (F, 4F)``, ``b (4F,)`` (``g{i}_LSTM/fwd{l}``); Conv1d's
+``kernel (K, in/groups, out)`` and ``bias``; BatchNorm's ``scale``,
+``bias`` and batch stats ``mean``, ``var``; the ``embedding (num, F)``
+tables of ``emb_{k}`` and ``g{i}_Embedding``; WaveNet's
 ``wavenet/input_embed/embedding (out, R)``, ``block_{i}/dilated/kernel
 (2, R, G)`` and the ``cond``, ``skip``, ``res``, ``post1`` and ``post2``
 Dense ``kernel (in, out)`` and ``bias`` (``wavenet.py:26-88``).
-Layouts are the same in both packages, so no leaf is transposed.
 """
 
 from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+# flax's BatchNorm running averages: the leaves of ``batch_stats``.
+BATCH_STATS = ("mean", "var")
 
 
 def flatten_flax(tree, prefix=()):
@@ -40,11 +50,7 @@ def flatten_flax(tree, prefix=()):
     return flat
 
 
-def flax_to_state_dict(variables):
-    """flax variables (``{"params": {...}}`` or the params tree itself)
-    -> ``{dotted name: float32 tensor}`` for ``load_state_dict``."""
-    tree = variables.get("params", variables) \
-        if isinstance(variables, Mapping) else variables
+def _state_names(tree):
     state = {}
     for path, leaf in flatten_flax(tree).items():
         if len(path) >= 2 and path[0] == "wrapped" and path[1] == "inner":
@@ -54,24 +60,37 @@ def flax_to_state_dict(variables):
     return state
 
 
+def flax_to_state_dict(variables):
+    """flax variables (``{"params": {...}, "batch_stats": {...}}`` or the
+    params tree itself) -> ``{dotted name: float32 tensor}`` for
+    ``load_state_dict``."""
+    if not isinstance(variables, Mapping) or "params" not in variables:
+        return _state_names(variables)
+    state = _state_names(variables["params"])
+    state.update(_state_names(variables.get("batch_stats") or {}))
+    return state
+
+
 def load_flax_params(model, variables):
-    """Load flax variables into a port model; every parameter must be
-    matched (``strict=True``).  Returns the model."""
+    """Load flax variables into a port model; every parameter and buffer
+    must be matched (``strict=True``).  Returns the model."""
     model.load_state_dict(flax_to_state_dict(variables), strict=True)
     return model
 
 
 def state_dict_to_flax(state_dict):
     """The port's state dict -> the flax ``{"params": {...}}`` tree of
-    float32 numpy arrays (the inverse of :func:`flax_to_state_dict`),
-    for comparing the two packages' parameters after training."""
-    params = {}
+    float32 numpy arrays, with ``"batch_stats"`` beside it when the model
+    has BatchNorm buffers (the inverse of :func:`flax_to_state_dict`), for
+    comparing the two packages' parameters after training."""
+    variables = {"params": {}}
     for name, value in state_dict.items():
         path = name.split(".")
         if path[0] == "wrapped":
             path = ["wrapped", "inner"] + path[1:]
-        node = params
+        node = variables.setdefault(
+            "batch_stats" if path[-1] in BATCH_STATS else "params", {})
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = value.detach().to(torch.float32).cpu().numpy()
-    return {"params": params}
+    return variables

@@ -14,12 +14,14 @@ recipe where the JAX package starts it, on a machine without JAX:
 - flax's key for each parameter: one ``fold_in`` of the SHA-1 of the
   parameter's scope path and its creation counter within the scope;
 - the initializers the rnn_dyn model uses: ``lecun_normal`` (a
-  truncated normal), ``orthogonal`` (QR of a normal draw) and ``zeros``.
+  truncated normal), ``orthogonal`` (QR of a normal draw), the embedding
+  tables' ``variance_scaling`` normal, ``zeros`` and ``ones``.
 
 The uniform bits are JAX's exactly; ``erf``, ``erfinv`` and the QR are
 numpy's and scipy's in float64, rounded to float32, so a weight can sit
 an ulp or so from JAX's.  :func:`rnn_dyn_params` gives the flax tree that
-``models/convert.py`` loads into the port's model.
+``models/convert.py`` loads into the port's model, for every layer type
+but Custom.
 """
 
 import hashlib
@@ -138,48 +140,137 @@ def param_key(root, path, counter):
     return fold_in(root, int.from_bytes(digest.digest()[:4], "big"))
 
 
+def _variance_scaling_normal(key, shape):
+    """flax ``Embed``'s default ``variance_scaling(1, "fan_in", "normal",
+    out_axis=0)`` for a (num, features) table: a normal draw times
+    sqrt(1 / features)."""
+    return normal(key, shape) * np.sqrt(np.float32(1.0 / shape[1]))
+
+
+def _dense(root, path, in_dim, out_dim, bias=True, kernel=lecun_normal):
+    """A flax Dense scope: ``kernel`` (the scope's first parameter) and a
+    zero ``bias`` (its second)."""
+    leaves = {"kernel": kernel(param_key(root, path, 1), (in_dim, out_dim))}
+    if bias:
+        leaves["bias"] = np.zeros(out_dim, np.float32)
+    return leaves
+
+
+def _recurrent(root, path, layer, in_dim):
+    """The parameters of a ``_MaskedFlipRNN`` group; returns (tree,
+    output width)."""
+    F = layer.out_dim
+    t = layer.layer_type
+    tree = {}
+    directions = ("fwd", "bwd") if layer.bidirectional else ("fwd",)
+    for i in range(layer.num_layers):
+        if t == "LSTM" and layer.bidirectional:
+            scope = path + ("bi{}".format(i),)
+            tree[scope[-1]] = {
+                "Wx": lecun_normal(param_key(root, scope, 1),
+                                   (2, in_dim, 4 * F)),
+                "Wh": orthogonal(param_key(root, scope, 2), (2, F, 4 * F)),
+                "b": np.zeros((2, 4 * F), np.float32)}
+        elif t == "LSTM":
+            scope = path + ("fwd{}".format(i),)
+            tree[scope[-1]] = {
+                "Wx": lecun_normal(param_key(root, scope, 1),
+                                   (in_dim, 4 * F)),
+                "Wh": orthogonal(param_key(root, scope, 2), (F, 4 * F)),
+                "b": np.zeros(4 * F, np.float32)}
+        else:
+            for direction in directions:
+                cell = path + ("{}{}".format(direction, i),)
+                gates = ("r", "z", "n") if t == "GRU" else ("",)
+                leaves = {}
+                for g in gates:
+                    leaves["i" + g] = _dense(root, cell + ("i" + g,),
+                                             in_dim, F)
+                    leaves["h" + g] = _dense(
+                        root, cell + ("h" + g,), F, F, bias=(g == "n"),
+                        kernel=orthogonal)
+                tree[cell[-1]] = leaves
+        in_dim = F * len(directions)
+    return tree, in_dim
+
+
 # The JAX handler's model is a NamedForwardWrapper around an adapter
 # around RNNDyn: the scope path of every rnn_dyn parameter starts so.
 _SCOPE_PREFIX = ("wrapped", "inner")
 
 
 def rnn_dyn_params(config, seed=1234):
-    """The flax parameter tree that the JAX package's
+    """The flax variables that the JAX package's
     ``ModularModelHandler.init_params`` draws for an rnn_dyn model
-    ``config`` (Dense and bidirectional LSTM groups) with ``seed``:
-    ``{"params": {"wrapped": {"inner": {...}}}}``, numpy float32."""
+    ``config`` with ``seed``: ``{"params": {"wrapped": {"inner": {...}}}}``
+    in numpy float32, with ``"batch_stats"`` (BatchNorm's running mean 0
+    and variance 1) beside it when the model has BatchNorm groups.
+
+    Every layer type draws as flax draws it: Dense, Conv and the VAE's
+    Dense layers ``lecun_normal`` kernels and zero biases; LSTM ``Wx``
+    lecun_normal, ``Wh`` orthogonal, ``b`` zeros; GRU ``ir``/``iz``/``in``
+    and the simple cell's ``i`` lecun_normal with zero biases, the
+    recurrent ``hr``/``hz``/``hn``/``h`` orthogonal (``hn``'s bias zero);
+    embedding tables ``variance_scaling(1, fan_in, normal, out_axis=0)``;
+    BatchNorm scale 1 and bias 0.  Custom groups raise: their draw is
+    their module's own."""
     root = prng_key(seed)
-    tree = {}
-    in_dim = config.in_dim
+    tree, stats = {}, {}
+    num_groups = len(config.layer_configs)
+    for emb in config.emb_configs:
+        path = _SCOPE_PREFIX + ("emb_" + str(emb.name),)
+        tree[path[-1]] = {"embedding": _variance_scaling_normal(
+            param_key(root, path, 1),
+            (emb.num_embeddings, emb.embedding_dim))}
+    in_dim = int(np.prod(config.in_dim))
     for g_idx, layer in enumerate(config.layer_configs):
+        in_dim += sum(e.embedding_dim for e in config.emb_configs
+                      if -1 in e.affected_layer_group_indices
+                      or g_idx in e.affected_layer_group_indices
+                      or g_idx - num_groups in e.affected_layer_group_indices)
         t = layer.layer_type
         name = "g{}_{}".format(g_idx, t)
-        if t in ("Linear", "FC", "LIN"):
+        path = _SCOPE_PREFIX + (name,)
+        if t in ("Linear", "FC", "LIN") or t.startswith("Conv1d"):
             for i in range(layer.num_layers):
-                path = _SCOPE_PREFIX + ("{}_{}".format(name, i),)
-                # The bias (the scope's second parameter) is zeros.
-                tree[path[-1]] = {
-                    "kernel": lecun_normal(param_key(root, path, 1),
-                                           (in_dim, layer.out_dim)),
-                    "bias": np.zeros(layer.out_dim, np.float32)}
+                scope = _SCOPE_PREFIX + ("{}_{}".format(name, i),)
+                if t.startswith("Conv1d"):
+                    k = np.atleast_1d(layer.kernel_size)[0]
+                    leaves = {
+                        "kernel": lecun_normal(
+                            param_key(root, scope, 1),
+                            (int(k), in_dim // layer.groups, layer.out_dim)),
+                        "bias": np.zeros(layer.out_dim, np.float32)}
+                else:
+                    leaves = _dense(root, scope, in_dim, layer.out_dim)
+                tree[scope[-1]] = leaves
                 in_dim = layer.out_dim
-        elif t == "LSTM" and layer.bidirectional:
-            F = layer.out_dim
-            group = tree.setdefault(name, {})
-            for i in range(layer.num_layers):
-                path = _SCOPE_PREFIX + (name, "bi{}".format(i))
-                group[path[-1]] = {
-                    "Wx": lecun_normal(param_key(root, path, 1),
-                                       (2, in_dim, 4 * F)),
-                    "Wh": orthogonal(param_key(root, path, 2),
-                                     (2, F, 4 * F)),
-                    "b": np.zeros((2, 4 * F), np.float32)}
-                in_dim = 2 * F
-        else:
+        elif t in ("LSTM", "GRU", "RNN"):
+            tree[name], in_dim = _recurrent(root, path, layer, in_dim)
+        elif t == "BatchNorm1d":
+            tree[name] = {"scale": np.ones(in_dim, np.float32),
+                          "bias": np.zeros(in_dim, np.float32)}
+            stats[name] = {"mean": np.zeros(in_dim, np.float32),
+                           "var": np.ones(in_dim, np.float32)}
+        elif t == "Embedding":
+            tree[name] = {"embedding": _variance_scaling_normal(
+                param_key(root, path, 1),
+                (layer.num_embeddings, layer.out_dim))}
+            in_dim = layer.out_dim
+        elif t == "VanillaVAE":
+            tree[name] = {k: _dense(root, path + (k,), in_dim,
+                                    layer.out_dim)
+                          for k in ("mu", "logvar")}
+            in_dim = layer.out_dim
+        elif t == "Custom":
             raise NotImplementedError(
-                "flax initial weights of layer type {} (bidirectional: {})"
-                .format(t, layer.bidirectional))
-    node = tree
-    for name in reversed(_SCOPE_PREFIX):
-        node = {name: node}
-    return {"params": node}
+                "flax initial weights of a Custom group are its module's")
+    variables = {"params": tree}
+    if stats:
+        variables["batch_stats"] = stats
+    for collection in variables:
+        node = variables[collection]
+        for name in reversed(_SCOPE_PREFIX):
+            node = {name: node}
+        variables[collection] = node
+    return variables

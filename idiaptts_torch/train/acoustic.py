@@ -16,6 +16,13 @@ the target, the Interspeech'18 model ``RNNDYN-2_RELU_1024-3_BiLSTM_512-
   failure on either path raises.
 - ``serve`` puts a ``SynthesisServer`` over the fused pipeline.
 
+- ``gen_figure`` draws the predicted coded spectrum and lf0 against
+  the original lf0 and voicing.
+
+A model may take inputs besides the questions (a speaker index for an
+EMB group): training reads them from their readers, serving takes them
+as trailing columns of the question matrix (``build_serving``).
+
 Everything runs on ``hparams.device`` (``"cuda"`` unless set to
 ``"cpu"``).  Griffin-Lim raises (ROADMAP.md queue 1 item 5).
 """
@@ -235,7 +242,15 @@ class AcousticModelTrainer(ModularTrainer):
         on the handler's device (model forward, denormalisation, MLPG,
         vocoder; one per configuration, cached), ``params`` what it runs
         the model with (the EMA parameters when configured, else the
-        model) and ``load_inputs(id_name)`` the question-matrix loader."""
+        model) and ``load_inputs(id_name)`` the question-matrix loader.
+
+        A model with inputs besides the questions (a speaker index for
+        an EMB group, say) takes them as trailing columns of the question
+        matrix: ``load_inputs`` appends each input's reader feature (one
+        row broadcast over the frames), and the model call splits the
+        columns back into the data dict by the widths probed on a known
+        utterance.  The pipeline is cached by the input names and widths
+        too."""
         handler = self.model_handler
         reader_q = self.datareaders["questions"]
         reader_cmp = self.datareaders["cmp_features"]
@@ -243,21 +258,48 @@ class AcousticModelTrainer(ModularTrainer):
             raise ValueError("cmp reader has no covariances/norm stats")
         input_names = tuple(getattr(handler.model_config, "input_names",
                                     None) or ("questions",))
-        if input_names != ("questions",):
-            raise NotImplementedError(
-                "serving a model with inputs {} is not ported yet; "
-                "ROADMAP.md queue 1 item 4 (EMB groups) ports it".format(
-                    input_names))
+        extra_names = tuple(n for n in input_names if n != "questions")
 
         def load_inputs(id_name):
-            return np.asarray(reader_q[id_name]["questions"], np.float32)
+            q = np.asarray(reader_q[id_name]["questions"], np.float32)
+            if not extra_names:
+                return q
+            cols = [q]
+            for name in extra_names:
+                feat = np.atleast_2d(np.asarray(
+                    self.datareaders[name][id_name][name], np.float32))
+                if feat.shape[0] == 1:
+                    feat = np.broadcast_to(feat, (len(q), feat.shape[1]))
+                elif feat.shape[0] != len(q):
+                    raise ValueError(
+                        "fused synth: input {!r} has {} frames vs {} "
+                        "question frames".format(name, feat.shape[0],
+                                                 len(q)))
+                cols.append(feat)
+            return np.concatenate(cols, axis=1)
+
+        widths = None
+        if extra_names:
+            known = (list(self.id_list_train or []) + list(
+                self.id_list_val or []) + list(self.id_list_test or []))
+            if not known:
+                raise ValueError(
+                    "serving a multi-input model needs at least one known "
+                    "utterance id to probe input widths; construct the "
+                    "trainer with a non-empty id_list")
+            probe = known[0]
+            widths = (np.asarray(reader_q[probe]["questions"]).shape[1],) \
+                + tuple(np.atleast_2d(np.asarray(
+                    self.datareaders[name][probe][name])).shape[1]
+                    for name in extra_names)
 
         fs = hparams.get("synth_fs", 16000)
         pipe_key = (hparams.get("num_coded_sps", 60), fs,
                     hparams.get("frame_size_ms", 5),
                     hparams.get("num_bap", 1),
                     bool(hparams.get("do_post_filtering")),
-                    hparams.get("mgc_alpha"), str(handler.device))
+                    hparams.get("mgc_alpha"), str(handler.device),
+                    input_names, widths)
         cache = self.__dict__.setdefault("_fused_pipelines", {})
         if pipe_key not in cache:
             variances = {name: np.ascontiguousarray(np.diagonal(
@@ -269,7 +311,11 @@ class AcousticModelTrainer(ModularTrainer):
             output_name = handler.model_config.output_names[0]
 
             def model_apply(params, questions_b, lengths_b):
-                data = {"questions": questions_b}
+                if widths is None:
+                    data = {"questions": questions_b}
+                else:
+                    data = dict(zip(("questions",) + extra_names,
+                                    torch.split(questions_b, widths, dim=-1)))
                 if isinstance(params, dict):     # EMA parameters
                     out = torch.func.functional_call(
                         model, params, (data,),
@@ -295,7 +341,9 @@ class AcousticModelTrainer(ModularTrainer):
     def serve(self, hparams, max_batch=32, max_wait_ms=5.0):
         """A :class:`SynthesisServer` over the trained model's fused
         pipeline: ``server.submit(question_matrix)`` returns a future of
-        the waveform; concurrent requests batch per length bucket."""
+        the waveform (a multi-input model's extra inputs as trailing
+        columns, as ``build_serving``'s ``load_inputs`` gives them);
+        concurrent requests batch per length bucket."""
         pipeline, params, _ = self.build_serving(hparams)
         return SynthesisServer(pipeline, params, max_batch=max_batch,
                                max_wait_ms=max_wait_ms)
@@ -318,6 +366,36 @@ class AcousticModelTrainer(ModularTrainer):
             audio_io.raw_to_file(path, raw, fs)
             paths[id_name] = path
         return paths
+
+    def gen_figure_from_output(self, id_name, sample, hparams):
+        """The acoustic figure: the predicted coded spectrum as an image,
+        the predicted lf0 against the original one, and the original
+        voicing as shaded areas."""
+        from idiaptts_torch.train.trainer import _figure_path
+        from idiaptts_torch.utils.plotter import DataPlotter
+        num_coded_sps = hparams.get("num_coded_sps", 60)
+        path = _figure_path(id_name, hparams)
+        sp, lf0, _, _ = WorldFeatLabelGen.convert_to_world_features(
+            np.asarray(sample["pred_acoustic_features"]),
+            contains_deltas=False, num_coded_sps=num_coded_sps)
+        with DataPlotter() as plotter:
+            plotter.set_spec_data(0, sp, label="coded sp (pred)")
+            curves = [(lf0, "pred lf0")]
+            try:
+                _, org_lf0, org_vuv, _ = \
+                    WorldFeatLabelGen.convert_to_world_features(
+                        self._org_features(hparams, id_name),
+                        contains_deltas=False, num_coded_sps=num_coded_sps)
+                curves.append((org_lf0, "org lf0"))
+                plotter.set_area_list(1, [(org_vuv, "gray", 0.2,
+                                           "org vuv")])
+            except (FileNotFoundError, ValueError):
+                pass
+            plotter.set_data_list(1, curves)
+            plotter.set_label(1, xlabel="frames", ylabel="lf0")
+            plotter.gen_plot()
+            plotter.save_to_file(path)
+        return path
 
     def copy_synth(self, hparams, id_list):
         """Synthesise from the original extracted features."""

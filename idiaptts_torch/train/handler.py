@@ -17,9 +17,16 @@ total), backward, then the JAX handler's optax chain in its order:
 5. Adam or SGD at the scheduler's learning rate for this step;
 6. the EMA of the parameters, when configured.
 
-Residual precision of the BiLSTM training kernels is an explicit flag,
-``residuals_bf16`` (float32 by default); nothing switches it by batch
-size.
+The forward's intermediates (the VAE's ``vae_mu`` and ``vae_logvar``)
+join the output dict under their group path and, where the leaf name is
+free, under the bare leaf name, so losses such as ``VAEKLDLoss`` read
+them.  BatchNorm's running averages are module buffers: the training
+forward updates them, inference reads them, checkpoints save them.
+
+Residual precision of the BiLSTM training kernels follows the JAX
+handler's rule by default (``residuals_bf16 = None``): bf16 residual
+streams when a batch has more than 32 rows, float32 otherwise.  True or
+False overrides the rule.
 
 Checkpoints keep the JAX handler's directory layout
 (``<dir>/<model_name>/<networks_dir>/config.json``, ``params_<suffix>``,
@@ -44,6 +51,10 @@ from idiaptts_torch.train.model_handler_base import ModelHandler
 from idiaptts_torch.train.schedulers import create_scheduler
 
 logger = logging.getLogger(__name__)
+
+# Batch rows above which the BiLSTM training residuals default to bf16
+# (the JAX handler's rule, idiaptts_tpu/train/handler.py).
+BF16_RESIDUAL_ROWS = 32
 
 
 def param_path(name):
@@ -88,7 +99,7 @@ class ModularModelHandler(ModelHandler):
         self.backprop_loss_names = None
         self.iterations_per_scheduler_step = None
         self.epochs_per_scheduler_step = None
-        self.residuals_bf16 = False
+        self.residuals_bf16 = None
         self.last_grad_norm = None
         self.generator = torch.Generator(device=self.device).manual_seed(42)
 
@@ -208,10 +219,29 @@ class ModularModelHandler(ModelHandler):
         return torch.as_tensor(total, dtype=torch.float32,
                                device=self.device), loss_values
 
+    def residuals_bf16_for(self, rows):
+        """The BiLSTM training residuals' type for a batch of ``rows``
+        rows: the explicit ``residuals_bf16`` flag, or without one the
+        JAX handler's rule, bf16 above 32 rows a device."""
+        if self.residuals_bf16 is None:
+            return rows > BF16_RESIDUAL_ROWS
+        return bool(self.residuals_bf16)
+
     def _apply_model(self, data, lengths, training):
-        return self.model(data, lengths=lengths, training=training,
-                          generator=self.generator,
-                          residuals_bf16=self.residuals_bf16)
+        """Forward; returns the output dict with the intermediates merged
+        in (group path, and the bare leaf name where it is free)."""
+        rows = next((v.shape[0] for v in data.values()
+                     if torch.is_tensor(v) and v.dim() >= 1), 0)
+        intermediates = {}
+        out = self.model(data, lengths=lengths, training=training,
+                         generator=self.generator,
+                         residuals_bf16=self.residuals_bf16_for(rows),
+                         intermediates=intermediates)
+        flat = dict(out)
+        for key, value in intermediates.items():
+            flat[key] = value
+            flat.setdefault(key.rsplit("/", 1)[-1], value)
+        return flat
 
     @staticmethod
     def _global_norm(grads):
@@ -308,9 +338,11 @@ class ModularModelHandler(ModelHandler):
         if self.ema is not None:
             out = torch.func.functional_call(
                 self.model, self.ema.shadow, (data,),
-                {"lengths": lengths, "training": False})
+                {"lengths": lengths, "training": False,
+                 "generator": self.generator})
         else:
-            out = self._apply_model(data, lengths, training=False)
+            out = self.model(data, lengths=lengths, training=False,
+                             generator=self.generator)
         return {k: v.detach().to(torch.float32).cpu().numpy()
                 for k, v in out.items() if torch.is_tensor(v)}
 
@@ -345,8 +377,9 @@ class ModularModelHandler(ModelHandler):
         if self.ema is not None:
             # The EMA parameters serve inference; the raw ones resume
             # training with the optimiser moments that belong to them.
-            state = {"params": {k: v.detach().cpu()
-                                for k, v in self.ema.shadow.items()},
+            state = {"params": {**params,
+                                **{k: v.detach().cpu()
+                                   for k, v in self.ema.shadow.items()}},
                      "raw_params": params}
         opt_state = None
         if self.optimiser is not None:

@@ -20,9 +20,13 @@ the readers' original features.
 ``WindowingDatareadersDataset``, whose windows the batcher takes as its
 work items.
 
-Not ported yet: the figure front doors (``gen_figure``, which needs the
-plotter, ROADMAP.md queue 1 item 2), TensorBoard logging and the
-profiler hook.
+Figures: ``gen_figure`` draws each utterance's post-processed outputs
+through :class:`idiaptts_torch.utils.plotter.DataPlotter` (matplotlib,
+imported only there).  Logging: with ``out_dir`` and ``model_name`` set,
+a ``tensorboardX`` writer under ``<out_dir>/<model_name>/tensorboard``
+gets the hparams text, the parameter count and the epoch losses (a
+warning if it cannot be created).  Profiling: ``hparams.profiler_dir``
+wraps ``train`` in ``torch.profiler`` and writes its Chrome trace there.
 """
 
 import copy
@@ -43,9 +47,6 @@ from idiaptts_torch.hparams import ExtendedHParams
 from idiaptts_torch.train.handler import ModularModelHandler
 
 logger = logging.getLogger(__name__)
-
-_LATER_FIGURE = ("gen_figure is not ported yet; ROADMAP.md queue 1 item 2 "
-                 "(utils/plotter.py) ports it")
 
 
 class ModularTrainer:
@@ -70,6 +71,7 @@ class ModularTrainer:
         self.best_loss = np.inf
         self.train_losses = []       # [(loss_dict, epoch)]
         self.validation_losses = []
+        self.summary_writer = None
         if id_list is not None:
             self._setup_id_lists(id_list, hparams)
         else:
@@ -107,6 +109,7 @@ class ModularTrainer:
             self._setup_datareaders(hparams)
             self._setup_datasets(hparams)
         self.loss_configs = loss_configs or []
+        self._setup_summary_writer(hparams)
         handler = self.model_handler
         loaded = False
         if hparams.get("load_from_checkpoint") \
@@ -139,7 +142,7 @@ class ModularTrainer:
         names = hparams.get("backprop_loss_names")
         handler.backprop_loss_names = tuple(names) if names else None
         handler.set_ema(hparams)
-        handler.residuals_bf16 = bool(hparams.get("bf16_residuals", False))
+        handler.residuals_bf16 = hparams.get("bf16_residuals")
         if loaded and (hparams.get("load_optimiser")
                        or hparams.get("load_scheduler")):
             try:
@@ -152,7 +155,42 @@ class ModularTrainer:
                     networks_dir=hparams.get("networks_dir", "nn"))
             except FileNotFoundError:
                 pass
+        self._log_model_summary()
         return self
+
+    # -- TensorBoard ------------------------------------------------------
+    def _setup_summary_writer(self, hparams):
+        """A tensorboardX writer with the hparams text, when ``out_dir``
+        and ``model_name`` are set; a warning if it cannot be created."""
+        self.summary_writer = None
+        if not hparams.get("out_dir") or not hparams.get("model_name"):
+            return
+        try:
+            from tensorboardX import SummaryWriter
+            self.summary_writer = SummaryWriter(log_dir=os.path.join(
+                hparams.out_dir, hparams.model_name, "tensorboard"))
+            self.summary_writer.add_text("hparams",
+                                         hparams.get_debug_string())
+        except (ImportError, OSError) as e:
+            logger.warning("TensorBoard writer unavailable: %s", e)
+
+    def _log_model_summary(self):
+        """Parameter shapes and count as TensorBoard text."""
+        model = self.model_handler.model
+        if model is None or self.summary_writer is None:
+            return
+        lines, total = [], 0
+        for name, p in model.named_parameters():
+            lines.append("{}: {} = {}".format(name, tuple(p.shape),
+                                              p.numel()))
+            total += p.numel()
+        lines.append("TOTAL: {} parameters".format(total))
+        self.summary_writer.add_text("model_summary", "\n".join(lines))
+        logger.info("Model has %d parameters.", total)
+
+    def _log_scalar(self, tag, value, step):
+        if self.summary_writer is not None:
+            self.summary_writer.add_scalar(tag, value, step)
 
     def _setup_datareaders(self, hparams):
         self.datareaders = {}
@@ -256,8 +294,26 @@ class ModularTrainer:
     # -- training ---------------------------------------------------------
     def train(self, hparams):
         """Epoch loop with validation, best-model checkpointing and the
-        final-model policy.  Returns (validation losses, train losses)."""
+        final-model policy.  Returns (validation losses, train losses).
+        With ``hparams.profiler_dir`` the whole run is traced by
+        ``torch.profiler`` (host, and the card where there is one) and
+        the Chrome trace written into that directory."""
         hparams.verify()
+        profiler_dir = hparams.get("profiler_dir")
+        if not profiler_dir:
+            return self._train_epochs(hparams)
+        import torch
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.model_handler.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(profiler_dir, exist_ok=True)
+        with torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    profiler_dir)):
+            return self._train_epochs(hparams)
+
+    def _train_epochs(self, hparams):
         t_start = time.time()
         batch_size = hparams.get("batch_size_train", 1)
         epochs = hparams.get("epochs", 0)
@@ -296,6 +352,10 @@ class ModularTrainer:
             self.record_train_loss(per_loss, self.total_epoch)
             logger.info("Epoch %d train loss: %f", self.total_epoch,
                         train_loss)
+            self._log_scalar("loss/train", train_loss, self.total_epoch)
+            for name, value in per_loss.items():
+                self._log_scalar("loss/train_" + name, value,
+                                 self.total_epoch)
             if math.isnan(train_loss):
                 logger.error("Train loss is NaN, stopping.")
                 break
@@ -321,6 +381,7 @@ class ModularTrainer:
                 self.record_validation_loss(val_per_loss, self.total_epoch)
                 logger.info("Epoch %d validation loss: %f",
                             self.total_epoch, val_loss)
+                self._log_scalar("loss/val", val_loss, self.total_epoch)
                 if handler.scheduler is not None:
                     # The plateau metric may track a subset of the losses.
                     names = hparams.get("scheduler_loss_names")
@@ -515,7 +576,61 @@ class ModularTrainer:
             "compute_score must be implemented by the task trainer.")
 
     def gen_figure(self, hparams, id_list):
-        raise NotImplementedError(_LATER_FIGURE)
+        """A figure of each utterance's post-processed outputs (the task
+        trainer's ``gen_figure_from_output``); returns the file paths."""
+        results = self._forward_batched(
+            hparams, self._input_to_str_list(id_list),
+            hparams.get("batch_size_gen_figure", 48))
+        return [self.gen_figure_from_output(id_name, sample, hparams)
+                for id_name, sample in results.items()]
+
+    def gen_figure_from_output(self, id_name, sample, hparams):
+        """The default figure, one grid per feature: wide 2-D features
+        as spectrogram-style images, narrow ones as one curve a column,
+        1-D ones as one curve; binary-looking columns as shaded areas.
+        Written to ``<synth_dir or out_dir>/<id><gen_figure_ext>``."""
+        from idiaptts_torch.utils.plotter import DataPlotter
+        path = _figure_path(id_name, hparams)
+        grid = 0
+        with DataPlotter() as plotter:
+            plotter.set_title("{} - {}".format(
+                id_name, os.path.basename(hparams.get("model_name") or "")))
+            for key, value in sorted(sample.items()):
+                if not isinstance(value, np.ndarray) or value.size == 0 \
+                        or np.iscomplexobj(value):
+                    continue
+                if value.ndim == 1:
+                    value = value[:, None]
+                if value.ndim != 2:
+                    continue
+                if value.shape[1] > 4:
+                    # Wide feature: image view of (T, bins), transposed
+                    # only when the array looks bins-major.
+                    plotter.set_spec_data(grid, value
+                                          if value.shape[0] > value.shape[1]
+                                          else value.T, label=key)
+                    grid += 1
+                    continue
+                curves, areas = [], []
+                for col in range(value.shape[1]):
+                    column = value[:, col]
+                    name = key if value.shape[1] == 1 \
+                        else "{}[{}]".format(key, col)
+                    if np.isin(np.round(column), (0.0, 1.0)).all():
+                        areas.append((np.round(column), "gray", 0.2, name))
+                    else:
+                        curves.append((column, name))
+                if areas:
+                    plotter.set_area_list(grid, areas)
+                if curves:
+                    plotter.set_data_list(grid, curves)
+                if curves or areas:
+                    plotter.set_label(grid, xlabel="frames", ylabel=key)
+                    grid += 1
+            if grid:
+                plotter.gen_plot()
+                plotter.save_to_file(path)
+        return path
 
     @staticmethod
     def id_list_to_str(id_list):
@@ -648,6 +763,16 @@ class ModularTrainer:
     def get_dataset(self, split="train"):
         return {"train": self.dataset_train, "val": self.dataset_val,
                 "test": self.dataset_test}[split]
+
+
+def _figure_path(id_name, hparams):
+    """``<synth_dir or out_dir or .>/<id_name><gen_figure_ext>``, its
+    directory created."""
+    out_dir = hparams.get("synth_dir") or hparams.get("out_dir") or "."
+    path = os.path.join(out_dir, "{}{}".format(
+        id_name, hparams.get("gen_figure_ext", ".pdf")))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    return path
 
 
 def _inference_clone(reader):

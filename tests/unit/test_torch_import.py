@@ -57,6 +57,9 @@ MODULES = [
     "idiaptts_torch.train.duration",
     "idiaptts_torch.synth.frontend",
     "idiaptts_torch.synth.tts_model",
+    "idiaptts_torch.data.category",
+    "idiaptts_torch.models.registry",
+    "idiaptts_torch.utils.plotter",
     "chip_smoke",
     "probe_bilstm_proj",
 ]
@@ -75,8 +78,10 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 for name in sys.argv[1:]:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in BLOCKED + ("triton",))
+# matplotlib and tensorboardX load only where a figure is drawn or a
+# summary writer made.
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
+             + ("triton", "matplotlib", "tensorboardX"))
 assert not bad, bad
 print("imported", len(sys.argv) - 1, "modules")
 """

@@ -2,6 +2,8 @@
 with the flax model of idiaptts_tpu, weights moved by
 ``idiaptts_torch.models.convert``."""
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +12,7 @@ import torch
 
 from idiaptts_tpu.models import rnn_dyn as jax_rnn
 from idiaptts_torch.models import convert
+from idiaptts_torch.models.config import ModelConfig
 from idiaptts_torch.models import rnn_dyn as torch_rnn
 
 _STRINGS = [
@@ -50,9 +53,78 @@ def test_presets_match_jax(preset):
     "RNNDYN-4x8_EMB_(-1)-1_RELU_16-1_FC_8",
 ])
 def test_unported_layer_types_raise(model_string):
-    cfg = torch_rnn.convert_legacy_string(model_string, 12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.create_model()
+    """The four layer types that once raised here (BiGRU, unidirectional
+    LSTM, Conv1d, EMB groups) build and match the flax model on
+    converted weights, with unequal lengths.  The JAX legacy grammar
+    gives the Conv1d kernel "3x1" as (3, 1), which flax refuses; the
+    port reads it as the 1-D kernel 3, and the JAX side gets that
+    kernel.  Bound: one bf16 ulp of the output's magnitude (the FC
+    output is bf16 on both sides); measured 0."""
+    in_dim, B, T = 12, 3, 11
+    cfg_j = jax_rnn.convert_legacy_string(model_string, in_dim)
+    cfg_t = torch_rnn.convert_legacy_string(model_string, in_dim)
+    for layer in cfg_j.layer_configs:
+        if layer.layer_type.startswith("Conv1d"):
+            layer.kernel_size = layer.kernel_size[:1]
+    rs = np.random.RandomState(1)
+    x = rs.randn(B, T, in_dim).astype(np.float32)
+    if cfg_t.emb_configs:
+        x[..., -1] = rs.randint(0, 4, (B, 1))
+    lengths = np.array([11, 7, 2], np.int32)
+    model_j, model_t = cfg_j.create_model(), cfg_t.create_model()
+    params = jax.jit(model_j.init)({"params": jax.random.PRNGKey(0)},
+                                   jnp.asarray(x), jnp.asarray(lengths))
+    ref = np.asarray(jax.jit(model_j.apply)(params, jnp.asarray(x),
+                                            jnp.asarray(lengths)))
+    convert.load_flax_params(model_t,
+                             jax.tree_util.tree_map(np.asarray, params))
+    with torch.inference_mode():
+        out = model_t(torch.from_numpy(x),
+                      lengths=torch.from_numpy(lengths)).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=2.0 ** -8 * np.abs(ref).max())
+
+
+def test_registry_creates_configs_by_name():
+    """``create_model_config``: legacy strings and WaveNet as the JAX
+    registry gives them, a registered builder, and the EncDecDyn
+    refusal naming the queue item that ports it."""
+    from idiaptts_tpu.models import registry as jax_registry
+    from idiaptts_torch.models import registry
+    for name in ("RNNDYN-2_RELU_64-3_BiGRU_32-1_FC_67", "WaveNet"):
+        got = registry.create_model_config(name, 12, 256)
+        ref = jax_registry.create_model_config(name, 12, 256)
+        assert type(got).__qualname__ == type(ref).__qualname__
+        for key in ("input_names", "output_names", "out_channels"):
+            assert getattr(got, key, None) == getattr(ref, key, None)
+        again = ModelConfig.from_json(got.to_json())
+        assert type(again) is type(got)
+        assert again.to_json() == got.to_json()
+    string = "RNNDYN-1_RELU_8-1_FC_2"
+    assert _describe(registry.create_model_config(string, 5)) == \
+        _describe(jax_registry.create_model_config(string, 5))
+
+    @registry.register("Tiny")
+    def _tiny(in_dim, out_dim, hparams):
+        return torch_rnn.convert_legacy_string(
+            "RNNDYN-1_FC_{}".format(out_dim), in_dim)
+
+    assert registry.create_model_config("Tiny", 3, 2).layer_configs[
+        0].out_dim == 2
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        registry.create_model_config("EncDecDyn", 12, 67)
+    with pytest.raises(NotImplementedError, match="Unknown model type"):
+        registry.create_model_config("NoSuchModel", 12)
+
+
+def test_unported_jax_config_class_raises():
+    """A JAX config JSON naming a model type without a port (enc-dec,
+    queue 1 item 7) is refused with the item's pointer."""
+    blob = json.dumps({"__class__":
+                       "idiaptts_tpu.models.enc_dec:EncDecDyn.Config"})
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        ModelConfig.from_json(blob)
 
 
 def test_masked_flip_matches_jax():

@@ -255,6 +255,10 @@ def test_serve_front_door(pair):
 
 
 def test_griffin_lim_and_gen_figure_raise(pair):
+    """Griffin-Lim still raises (ROADMAP.md queue 1 item 5); gen_figure,
+    which raised here until the figure front door was ported, writes the
+    acoustic figure of each utterance (predicted coded spectrum, lf0
+    against the original) as the JAX trainer does."""
     trainer, hp = pair["port"], pair["hp"]
     hp.synth_vocoder = "GriffinLim"
     try:
@@ -262,8 +266,14 @@ def test_griffin_lim_and_gen_figure_raise(pair):
             trainer.gen_waveform(hp, {IDS[0]: {}}, use_org_features=True)
     finally:
         hp.synth_vocoder = "WORLD"
-    with pytest.raises(NotImplementedError, match="item 2"):
-        trainer.gen_figure(hp, list(IDS[:1]))
+    hp.synth_dir = str(pair["tmp"] / "figures")
+    paths = trainer.gen_figure(hp, list(IDS[:2]))
+    paths_j = pair["jax"].gen_figure(pair["hp_j"], list(IDS[:2]))
+    assert [os.path.basename(p) for p in paths] == \
+        [os.path.basename(p) for p in paths_j]
+    for path in paths:
+        assert os.path.dirname(path) == hp.synth_dir
+        assert os.path.getsize(path) > 1000
 
 
 @pytest.mark.parametrize("value, expected", [
