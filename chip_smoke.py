@@ -149,6 +149,26 @@ other error raises at once):
    AlwaysDropout with a seeded generator.  (d) The full-width train
    step at T = 1024, B = 64 from one seeded init with float32 and bf16
    BiLSTM residuals: the loss after 20 steps and the ms a step.
+12. WORLD feature extraction.  (a) ``WorldFeatLabelGen.gen_data`` on
+   ``cuda`` over the fixture corpora, 16 kHz (six wavs, 9.93 s) and
+   48 kHz (two, 3.35 s), at 20 coded coefficients with deltas (the
+   recipes' width) and 60 without: wall s and xRT, the files and
+   feature widths; one utterance of each rate through ``world_analysis``
+   on the card against the port's CPU path (the bounds of
+   tests/unit/test_torch_world_analysis.py); the F0 of the card's
+   corpus against the contours the fixture wavs were synthesised from.
+   (b) The extraction's split for one wav of each rate and for the 16
+   kHz wavs concatenated to 60 s (12,000 frames): ``world_analysis`` end
+   to end (xRT), the device analysis, its Viterbi loop alone, the host's
+   ``refine_vuv``, and the device's idle share from torch.profiler; the
+   60 s utterance's F0 against the concatenated contours.  (c) Phase 6's
+   trainer (the Interspeech'18 model) trained on the card's own 20-mcep
+   corpus and its statistics, counters reset just before and read just
+   after (K7's projection, K4 and K5 must launch, the loss finite and
+   falling), then its modular ``synth`` (K1 must launch).  (d) One
+   utterance's amplitude spectrum through ``run_world_synth`` (``sp_type
+   = "amp_sp"``) and its STFT magnitude through ``run_griffin_lim`` on
+   the card: finite and audible.
 
 The last three lines of standard output are the kernels JSON (every
 kernel with its bound, its plain version's and the library call's time),
@@ -356,6 +376,20 @@ SMALL_TOL = 2.0 ** -6
 PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16 operands
 PEAK_F32_FLOPS = 67e12       # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+
+# Phase 12 (feature extraction): the corpora (wav directory, sample
+# rate), the coded-spectrum widths (the recipes' NUM_SPS with deltas, the
+# default without), the long utterance's length, the kernels the
+# extracted corpus's training and modular synth must launch, and the
+# card-against-CPU bounds of tests/unit/test_torch_world_analysis.py.
+EXTRACT_CORPORA = (("wav", 16000), ("wav48", 48000))
+EXTRACT_SPS = ((20, True), (60, False))
+EXTRACT_LONG_S = 60.0
+EXTRACT_TRAIN_KERNELS = ("bilstm_proj", "bilstm_recurrence_train",
+                         "bilstm_bwd")
+EXTRACT_SYNTH_KERNELS = ("mlpg_oneshot",)
+EXTRACT_TOL = {"voicing": 0.99, "f0_rel": 5e-4, "coded_max": 0.2,
+               "coded_mean": 5e-3, "bap_max": 1.5, "bap_mean": 0.05}
 
 # Checks that failed; the script exits non-zero if any did.
 FAILURES = []
@@ -1185,9 +1219,11 @@ def layer_gradients(torch, xin, wx, wh, bias, gen):
 
 # -- phase 6 -----------------------------------------------------------------
 
-def make_trainer(torch, device, workdir, epochs=TRAIN_EPOCHS):
+def make_trainer(torch, device, workdir, epochs=TRAIN_EPOCHS,
+                 world_dir=os.path.join(FIXTURES, "WORLD")):
     """AcousticModelTrainer on the fixture corpus with its default model,
-    the full-width Interspeech'18 model."""
+    the full-width Interspeech'18 model; the WORLD features and their
+    statistics come from ``world_dir``."""
     from idiaptts_torch.train.acoustic import AcousticModelTrainer
     _, _, num_q = load_corpus()
     with open(os.path.join(FIXTURES, "file_id_list.txt")) as f:
@@ -1206,7 +1242,7 @@ def make_trainer(torch, device, workdir, epochs=TRAIN_EPOCHS):
     hp.model_name = "acoustic"
     trainer = AcousticModelTrainer(
         hp, ids, dir_question_labels=os.path.join(FIXTURES, "questions"),
-        dir_world_features=os.path.join(FIXTURES, "WORLD"))
+        dir_world_features=world_dir)
     trainer.init(hp)
     return trainer, hp
 
@@ -2926,6 +2962,345 @@ def remaining_layers(torch, device, card, workdir):
                 wall_s=wall)
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+def _corpus_ids(sub):
+    return sorted(os.path.splitext(n)[0] for n in os.listdir(
+        os.path.join(FIXTURES, "database", sub)) if n.endswith(".wav"))
+
+
+def _wav(sub, id_name):
+    from idiaptts_torch.ops import audio_io
+    return audio_io.get_raw(os.path.join(FIXTURES, "database", sub,
+                                         id_name + ".wav"))
+
+
+def extract_corpora(torch, device, workdir, card):
+    """gen_data on ``device`` of the 16 kHz and 48 kHz fixture corpora at
+    each coded-spectrum width: wall s and xRT a corpus, the files it
+    wrote, its features finite and of the expected widths.  Returns
+    {(sub, num_sps): dict(dir, labels, wall_s, xrt, audio_s)}."""
+    from idiaptts_torch.data.world_feat import WorldFeatLabelGen
+    from idiaptts_torch.ops.world.extract import world_analysis
+    # One short analysis first: cuFFT plans and the first launches.
+    _timed(torch, lambda: world_analysis(
+        _wav("wav", "gen-0001")[0][:4000], FS, device=device))
+    out = {}
+    for sub, fs in EXTRACT_CORPORA:
+        ids = _corpus_ids(sub)
+        audio_s = sum(len(_wav(sub, i)[0]) for i in ids) / fs
+        for num_sps, deltas in EXTRACT_SPS:
+            directory = os.path.join(workdir, "extracted_{}_{}".format(
+                sub, num_sps))
+            gen = WorldFeatLabelGen(dir_labels=directory,
+                                    add_deltas=deltas,
+                                    num_coded_sps=num_sps,
+                                    device=str(device))
+            (labels, _), wall = _timed(torch, lambda: gen.gen_data(
+                os.path.join(FIXTURES, "database", sub), dir_out=directory,
+                id_list=ids, return_dict=True))
+            num_bap = 1 if fs == FS else 5
+            for id_name, feats in labels.items():
+                frames = 1 + (len(_wav(sub, id_name)[0]) - 1) // (fs // 200)
+                if feats.shape != (frames, num_sps + 2 + num_bap) \
+                        or not np.all(np.isfinite(feats)):
+                    fail("gen_data {} N={}: {} has features {} (want "
+                         "({}, {}), finite)".format(
+                             sub, num_sps, id_name, feats.shape, frames,
+                             num_sps + 2 + num_bap))
+            files = sum(len(f) for _, _, f in os.walk(directory))
+            want = 4 * len(ids) + 6     # the streams, their statistics
+            if files != want:
+                fail("gen_data {} N={} wrote {} files, want {}".format(
+                    sub, num_sps, files, want))
+            out[(sub, num_sps)] = dict(dir=directory, labels=labels,
+                                       wall_s=wall, audio_s=audio_s,
+                                       xrt=audio_s / wall)
+            log("  gen_data {} ({} utterances, {:.2f} s of audio, {} "
+                "kHz) N={}{}: {:.3f} s = {:.1f}x realtime, {} files [{}]"
+                .format(sub, len(ids), audio_s, fs // 1000, num_sps,
+                        " with deltas" if deltas else "", wall,
+                        audio_s / wall, files, card))
+    return out
+
+
+def _feature_diffs(out, ref):
+    """Card-against-CPU differences of two world_analysis results."""
+    (f0, coded, bap), (f0_r, coded_r, bap_r) = out, ref
+    both = (f0 > 0) & (f0_r > 0)
+    return {
+        "voicing": float(((f0 > 0) == (f0_r > 0)).mean()),
+        "f0_rel": float((np.abs(f0 - f0_r)[both] / f0_r[both]).max())
+        if both.any() else 0.0,
+        "coded_max": float(np.abs(coded - coded_r).max()),
+        "coded_mean": float(np.abs(coded - coded_r).mean()),
+        "bap_max": float(np.abs(bap - bap_r).max()),
+        "bap_mean": float(np.abs(bap - bap_r).mean())}
+
+
+def extraction_against_cpu(torch, device):
+    """One 16 kHz and one 48 kHz utterance through world_analysis on the
+    card and on the port's CPU path, held to the CPU tests' bounds."""
+    from idiaptts_torch.ops.world.extract import world_analysis
+    out = {}
+    for sub, id_name in (("wav", "gen-0001"), ("wav48", "gen48-0001")):
+        raw, fs = _wav(sub, id_name)
+        diffs = _feature_diffs(world_analysis(raw, fs, NUM_SPS,
+                                              device=device),
+                               world_analysis(raw, fs, NUM_SPS,
+                                              device="cpu"))
+        log("  {} on the card against the CPU path: {}".format(
+            id_name, json.dumps(diffs)))
+        for k, tol in EXTRACT_TOL.items():
+            bad = diffs[k] < tol if k == "voicing" else diffs[k] > tol
+            if bad:
+                fail("extraction of {} on the card against the CPU: {} "
+                     "{:.3g} (bound {})".format(id_name, k, diffs[k], tol))
+        out[id_name] = diffs
+    return out
+
+
+def _f0_against_truth(f0, f0_true, what):
+    """test_world.py's bounds on the generating contour: median voiced
+    error under 0.6 Hz, voicing agreement above 0.85."""
+    n = min(len(f0), len(f0_true))
+    both = (f0[:n] > 0) & (f0_true[:n] > 0)
+    median = float(np.median(np.abs(f0[:n][both] - f0_true[:n][both])))
+    agree = float(((f0[:n] > 0) == (f0_true[:n] > 0)).mean())
+    if not (median < 0.6 and agree > 0.85):
+        fail("F0 of {} against the generating parameters: median error "
+             "{:.3f} Hz, voicing agreement {:.3f}".format(what, median,
+                                                          agree))
+    return {"median_err_hz": median, "voicing_agreement": agree}
+
+
+def f0_against_parameters(corpus):
+    """F0 from the card's gen_data (lf0 and vuv) against the contours the
+    16 kHz fixture wavs were synthesised from."""
+    out = {}
+    for id_name, feats in sorted(corpus[("wav", NUM_SPS)]["labels"].items()):
+        f0 = np.where(feats[:, NUM_SPS + 1] > 0.5,
+                      np.exp(feats[:, NUM_SPS]), 0.0)
+        f0_true = np.load(os.path.join(FIXTURES, "params",
+                                       id_name + ".npz"))["f0"]
+        out[id_name] = _f0_against_truth(f0, f0_true, id_name)
+    log("  F0 against the generating parameters:", json.dumps(out))
+    return out
+
+
+def extraction_split(torch, device, raw, fs, card, what):
+    """world_analysis of one waveform on the card: wall s end to end
+    (xRT), the device analysis (synchronised; the host enqueues every
+    launch, the Viterbi's and D4C's step loops included), the Viterbi
+    forward loop alone, the host's refine_vuv, and the device's busy
+    time and idle share over the device analysis from torch.profiler."""
+    import importlib
+    from idiaptts_torch.ops import mcep as mcep_ops
+    from idiaptts_torch.ops.world.extract import (_analysis_dev,
+                                                  world_analysis)
+    f0_mod = importlib.import_module("idiaptts_torch.ops.world.f0")
+    d4c_mod = importlib.import_module("idiaptts_torch.ops.world.d4c")
+    hop = fs // 200
+    audio_s = len(raw) / fs
+    (f0, coded, bap), total = _timed(torch, lambda: world_analysis(
+        raw, fs, NUM_SPS, device=device))
+    padded = torch.from_numpy(f0_mod.pad_to_bucket(raw)).to(device)
+    args = (padded, fs, hop, f0_mod.correlation_window(fs),
+            mcep_ops.fs_to_frame_length(fs),
+            max(1, d4c_mod.get_num_aperiodicities(fs)), NUM_SPS - 1,
+            mcep_ops.fs_to_mgc_alpha(fs))
+    with torch.inference_mode():
+        _, device_s = _timed(torch, lambda: _analysis_dev(*args))
+        nccf, _ = f0_mod._nccf(padded, fs, hop, 71.0, args[3])
+        cand, scores = f0_mod._candidates(nccf, fs, 71.0, 800.0)
+        del nccf
+        _, viterbi_s = _timed(torch, lambda: f0_mod._viterbi(
+            cand, scores, f0_mod._UNVOICED_COST, f0_mod._TRANSITION_W))
+        kernels = profile_step(torch, lambda: _analysis_dev(*args), steps=1)
+    # refine_vuv's cost is its four-interval tracks, whatever the f0.
+    t0 = time.perf_counter()
+    f0_mod.refine_vuv(raw, fs, f0)
+    refine_s = time.perf_counter() - t0
+    busy_ms = sum(kernels.values())
+    stats = dict(audio_s=audio_s, frames=len(f0),
+                 padded_frames=int(cand.shape[0]), wall_s=total,
+                 xrt=audio_s / total, device_analysis_s=device_s,
+                 viterbi_loop_s=viterbi_s, refine_vuv_s=refine_s,
+                 device_busy_ms=busy_ms if kernels else None,
+                 idle_share=(1.0 - busy_ms / (device_s * 1e3)
+                             if kernels else None),
+                 top_kernels_ms=dict(sorted(kernels.items(),
+                                            key=lambda kv: -kv[1])[:6]))
+    log("  {}: {:.2f} s of audio, {} frames ({} padded): world_analysis "
+        "{:.3f} s = {:.1f}x realtime | device analysis {:.3f} s (Viterbi "
+        "loop {:.3f} s), host refine_vuv {:.3f} s [{}]".format(
+            what, audio_s, len(f0), stats["padded_frames"], total,
+            stats["xrt"], device_s, viterbi_s, refine_s, card))
+    if kernels:
+        log("    device busy {:.3f} ms of the device analysis (idle "
+            "{:.1%})".format(busy_ms, stats["idle_share"]))
+        for name, v in stats["top_kernels_ms"].items():
+            log("    {:9.3f} ms  {}".format(v, name[:100]))
+    else:
+        log("    torch.profiler recorded no device time: idle share not "
+            "measured")
+    if not (np.all(np.isfinite(coded)) and np.all(np.isfinite(bap))):
+        fail("{}: non-finite features".format(what))
+    return stats, f0
+
+
+def long_utterance(torch, device, card):
+    """The 16 kHz fixture wavs concatenated in order until 60 s (12,000
+    frames) through world_analysis on the card, split and timed; its F0
+    against the concatenated generating contours."""
+    ids = _corpus_ids("wav")
+    n = int(EXTRACT_LONG_S * FS)
+    raws, truth, k = [], [], 0
+    while sum(len(r) for r in raws) < n:
+        id_name = ids[k % len(ids)]
+        raws.append(_wav("wav", id_name)[0])
+        truth.append(np.load(os.path.join(FIXTURES, "params",
+                                          id_name + ".npz"))["f0"])
+        k += 1
+    raw = np.concatenate(raws)[:n]
+    stats, f0 = extraction_split(torch, device, raw, FS, card,
+                                 "60 s utterance")
+    if len(f0) != n // (FS // 200):
+        fail("60 s utterance: {} frames, want {}".format(
+            len(f0), n // (FS // 200)))
+    stats["f0_truth"] = _f0_against_truth(f0, np.concatenate(truth),
+                                          "the 60 s utterance")
+    return stats
+
+
+def extracted_voice(torch, device, workdir, corpus, card):
+    """Phase 6's trainer (the full-width Interspeech'18 model) trained on
+    the corpus the card extracted (features and statistics), then its
+    modular synth: launch counters reset just before each and read just
+    after."""
+    out_dir = os.path.join(workdir, "extracted_voice")
+    trainer, hp = make_trainer(torch, device, out_dir,
+                               world_dir=corpus[("wav", NUM_SPS)]["dir"])
+    (losses, train_launches) = counted(torch, lambda: trainer.train(hp))
+    val_loss, train_loss = losses
+    log("  training on the extracted corpus: train loss {} | validation "
+        "{} | launches {}".format(train_loss, val_loss,
+                                  json.dumps(train_launches)))
+    require_launches(train_launches, EXTRACT_TRAIN_KERNELS,
+                     "extracted-corpus training")
+    if not (np.all(np.isfinite(train_loss))
+            and np.all(np.isfinite(val_loss))):
+        fail("non-finite loss training on the extracted corpus")
+    if not train_loss[-1] < train_loss[0]:
+        fail("training loss on the extracted corpus did not fall: {}"
+             .format(train_loss))
+    ids = fixture_ids()
+    hp.use_fused_synth = False
+    hp.synth_dir = os.path.join(out_dir, "synth_modular")
+    hp.batch_size_synth = len(ids)
+    paths, synth_launches = counted(torch, lambda: trainer.synth(hp, ids))
+    log("  modular synth from the extracted-corpus model: launches",
+        json.dumps(synth_launches))
+    require_launches(synth_launches, EXTRACT_SYNTH_KERNELS,
+                     "extracted-corpus modular synth")
+    labels = corpus[("wav", NUM_SPS)]["labels"]
+    for id_name in ids:
+        raw, ok = _wav_ok(paths[id_name], len(labels[id_name]))
+        if not ok:
+            fail("modular synth of {}: wrong length or non-finite".format(
+                id_name))
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(train_loss=list(train_loss), val_loss=list(val_loss),
+                train_launches=train_launches,
+                synth_launches=synth_launches)
+
+
+def amplitude_synthesis(torch, device, workdir, card):
+    """One utterance's WORLD features with its amplitude spectrum
+    (``sp_type="amp_sp"``) through ``Synthesiser.run_world_synth``, and
+    its STFT magnitude through ``Synthesiser.run_griffin_lim``, on the
+    card: finite and audible (RMS above 0.01)."""
+    from idiaptts_torch.data.world_feat import WorldFeatLabelGen
+    from idiaptts_torch.hparams import ExtendedHParams
+    from idiaptts_torch.ops import audio_io, stft as stft_ops
+    from idiaptts_torch.synth.synthesiser import Synthesiser
+    raw, fs = _wav("wav", "gen-0002")
+    amp_sp, lf0, vuv, bap = WorldFeatLabelGen.world_extract_features(
+        raw, fs, device=device)
+    hp = ExtendedHParams.create_hparams()
+    hp.device = str(device)
+    hp.sp_type = "amp_sp"
+    hp.num_coded_sps = amp_sp.shape[1]
+    hp.synth_dir = os.path.join(workdir, "amplitude_synth")
+    feats = WorldFeatLabelGen.convert_from_world_features(amp_sp, lf0, vuv,
+                                                          bap)
+    out = {}
+    paths, out["world_amp_sp_s"] = _timed(
+        torch, lambda: Synthesiser.run_world_synth({"world": feats}, hp))
+    with torch.inference_mode():
+        spec = stft_ops.amp_spectrum(torch.from_numpy(raw).to(device),
+                                     1024, fs // 200).cpu().numpy()
+    gl_paths, out["griffin_lim_s"] = _timed(
+        torch, lambda: Synthesiser.run_griffin_lim({"griffin_lim": spec},
+                                                   hp))
+    for name, path, n in (("world", paths["world"], len(amp_sp) * 80),
+                          ("griffin_lim", gl_paths["griffin_lim"],
+                           (len(spec) - 1) * 80)):
+        wav, _ = audio_io.get_raw(path)
+        rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+        out[name + "_rms"] = rms
+        if wav.shape != (n,) or not np.all(np.isfinite(wav)) \
+                or not rms > 0.01:
+            fail("{} synthesis on the card: {} samples (want {}), RMS "
+                 "{:.4f}".format(name, len(wav), n, rms))
+    log("  amplitude-spectrum WORLD synthesis and Griffin-Lim of gen-0002 "
+        "[{}]: {}".format(card, json.dumps(out)))
+    return out
+
+
+def feature_extraction(torch, device, card, workdir):
+    """Phase 12: gen_data on the card at 16 and 48 kHz, the card against
+    the CPU path, F0 against the generating parameters, the extraction's
+    split and idle share, the 60 s utterance, then a voice trained from
+    the card's own features, its modular synth, and the amplitude-spectrum
+    and Griffin-Lim synthesis."""
+    t0 = time.perf_counter()
+    log("== phase 12 (a): gen_data on {} [{}]".format(device, card))
+    corpus = extract_corpora(torch, device, workdir, card)
+    against_cpu = extraction_against_cpu(torch, device)
+    f0_truth = f0_against_parameters(corpus)
+    log("== phase 12 (b): the extraction's split and idle share [{}]"
+        .format(card))
+    splits = {}
+    for sub, id_name in (("wav", "gen-0006"), ("wav48", "gen48-0002")):
+        raw, fs = _wav(sub, id_name)
+        splits[id_name] = extraction_split(torch, device, raw, fs, card,
+                                           id_name)[0]
+    splits["long"] = long_utterance(torch, device, card)
+    log("== phase 12 (c): {} trained on the card's extracted corpus, its "
+        "modular synth [{}]".format(MODEL_STRING, card))
+    voice = extracted_voice(torch, device, workdir, corpus, card)
+    log("== phase 12 (d): amplitude-spectrum synthesis and Griffin-Lim "
+        "[{}]".format(card))
+    amplitude = amplitude_synthesis(torch, device, workdir, card)
+    wall = time.perf_counter() - t0
+    summary = {
+        "wall_s": wall,
+        "gen_data": {"{}_N{}".format(*k): {x: v[x] for x in (
+            "audio_s", "wall_s", "xrt")} for k, v in corpus.items()},
+        "against_cpu": against_cpu, "f0_truth": f0_truth,
+        "split": {k: {x: v[x] for x in (
+            "audio_s", "frames", "padded_frames", "wall_s", "xrt",
+            "device_analysis_s", "viterbi_loop_s", "refine_vuv_s",
+            "device_busy_ms", "idle_share")} for k, v in splits.items()},
+        "long_f0_truth": splits["long"]["f0_truth"],
+        "voice": {k: voice[k] for k in ("train_loss", "val_loss")},
+        "amplitude": amplitude}
+    log("  phase 12 [{}]: {}".format(card, json.dumps(summary)))
+    return dict(voice=voice, summary=summary)
+
+
 def require_launches(launches, names, path):
     """Every kernel of a path must have launched during its run."""
     missing = [k for k in names if launches.get(k, 0) < 1]
@@ -3043,6 +3418,8 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
     del trainer
     torch.cuda.empty_cache()
     rest = remaining_layers(torch, device, card, workdir)
+    torch.cuda.empty_cache()
+    extraction = feature_extraction(torch, device, card, workdir)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -3070,7 +3447,11 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
                    "icassp19_train": rest["icassp19"]["train_launches"][
                        name],
                    "emb_train": rest["emb"]["train_launches"][name],
-                   "emb_serve": rest["emb"]["serve_launches"][name]}
+                   "emb_serve": rest["emb"]["serve_launches"][name],
+                   "extract_train": extraction["voice"]["train_launches"][
+                       name],
+                   "extract_synth": extraction["voice"]["synth_launches"][
+                       name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -3092,6 +3473,7 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
             entry["vocode_path"] = vstats
         if name == "mlpg_oneshot":
             entry["evaluate_path"] = estats
+            entry["extraction"] = extraction["summary"]
         if name == "banded_solve":
             entry["text_path"] = {
                 "run_DM_AM": {m: {k: tfd["text"][m][k] for k in (

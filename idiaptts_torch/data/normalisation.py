@@ -15,7 +15,8 @@ feature extraction (ROADMAP.md queue 1 item 5).  File formats:
 * ``*-min-max.bin``        : headerless float64 ``(2, D)`` (min, max).
 * npz archives with keys ``mean``/``std_dev``, ``mean``/``covariance`` or
   ``min``/``max`` (each with ``sum_length``), and ``*-stats`` with
-  ``sum_frames``/``sum_squared_frames``.
+  ``sum_frames``/``sum_squared_frames`` (or ``sum_product_frames``
+  for the covariance).
 """
 
 import os
@@ -96,6 +97,12 @@ class MeanStdDevExtractor:
                   datatype)
 
     @staticmethod
+    def load_stats(file_path, datatype=np.float64):
+        with np.load(_ensure_npz(file_path)) as archive:
+            return (archive["sum_frames"], archive["sum_squared_frames"],
+                    archive["sum_length"])
+
+    @staticmethod
     def load(file_path, datatype=np.float64):
         if str(file_path).endswith(".bin"):  # legacy binary format
             with open(file_path, "rb") as f:
@@ -108,11 +115,41 @@ class MeanStdDevExtractor:
         return (np.atleast_1d(mean).astype(np.float32, copy=False),
                 np.atleast_1d(std_dev).astype(np.float32, copy=False))
 
+    @staticmethod
+    def load_mean_std_dev_from_stats(file_path, datatype=np.float64):
+        s, ss, n = MeanStdDevExtractor.load_stats(file_path, datatype)
+        mean = s / n
+        std_dev = np.sqrt(np.maximum(ss / n - mean ** 2, 0.0))
+        return (mean.astype(np.float32, copy=False),
+                std_dev.astype(np.float32, copy=False))
+
+    @staticmethod
+    def combine_stats(file_list, dir_out=None, datatype=np.float64,
+                      save_txt=False):
+        """Sum the ``*-stats`` of corpus subsets; saved to ``dir_out``
+        when given."""
+        total = MeanStdDevExtractor()
+        for path in file_list:
+            s, ss, n = MeanStdDevExtractor.load_stats(path, datatype)
+            total.sum_length += int(n)
+            total.sum_frames = total.sum_frames + s
+            total.sum_squared_frames = total.sum_squared_frames + ss
+        if dir_out is not None:
+            total.save(os.path.join(dir_out, ""), datatype)
+        return total
+
 
 class MeanCovarianceExtractor:
-    """Mean / covariance normalisation (the covariance also feeds MLPG)."""
+    """Online mean / full covariance accumulator (the covariance also
+    feeds MLPG)."""
 
+    file_name_stats = "stats"
     file_name_appendix = "mean-covariance"
+
+    def __init__(self):
+        self.sum_length = 0
+        self.sum_frames = 0
+        self.sum_product_frames = 0
 
     @staticmethod
     def _cov_to_std(cov_or_std):
@@ -131,6 +168,57 @@ class MeanCovarianceExtractor:
     def _denormalise(feature, mean, covariance):
         std = MeanCovarianceExtractor._cov_to_std(covariance)
         return feature * std + np.squeeze(mean)
+
+    def add_sample(self, sample):
+        if sample is None:
+            raise ValueError("add_sample needs a sample, got None")
+        sample = np.asarray(sample)
+        self.sum_length += len(sample)
+        self.sum_frames = self.sum_frames + np.sum(sample, axis=0,
+                                                   keepdims=True)
+        self.sum_product_frames = (self.sum_product_frames
+                                   + sample.T @ sample)
+
+    def get_params(self):
+        mean = np.atleast_2d(self.sum_frames / self.sum_length)
+        covariance = (self.sum_product_frames / self.sum_length
+                      - mean.T @ mean)
+        return mean, np.atleast_2d(covariance)
+
+    def save(self, filename, datatype=np.float64):
+        self.save_stats(filename, datatype)
+        self.save_mean_covariance(filename, datatype)
+
+    def save_stats(self, filename, datatype=np.float64):
+        _save_npz(_prefix(filename) + self.file_name_stats, self.sum_length,
+                  {"sum_frames": self.sum_frames,
+                   "sum_product_frames": self.sum_product_frames}, datatype)
+
+    def save_mean_covariance(self, filename, datatype=np.float64):
+        mean, covariance = self.get_params()
+        _save_npz(_prefix(filename) + self.file_name_appendix,
+                  self.sum_length, {"mean": mean, "covariance": covariance},
+                  datatype)
+
+    @staticmethod
+    def load_stats(file_path, datatype=np.float64):
+        with np.load(_ensure_npz(file_path)) as archive:
+            return (archive["sum_frames"], archive["sum_product_frames"],
+                    archive["sum_length"])
+
+    @staticmethod
+    def combine_stats(file_list, dir_out=None, datatype=np.float64):
+        """Sum the ``*-stats`` of corpus subsets; saved to ``dir_out``
+        when given."""
+        total = MeanCovarianceExtractor()
+        for path in file_list:
+            s, sp, n = MeanCovarianceExtractor.load_stats(path, datatype)
+            total.sum_length += int(n)
+            total.sum_frames = total.sum_frames + s
+            total.sum_product_frames = total.sum_product_frames + sp
+        if dir_out is not None:
+            total.save(os.path.join(dir_out, ""), datatype)
+        return total
 
     @staticmethod
     def load(file_path, datatype=np.float64):
@@ -201,3 +289,15 @@ class MinMaxExtractor:
                 vmin, vmax = archive["min"], archive["max"]
         return (np.atleast_1d(vmin).astype(np.float32, copy=False),
                 np.atleast_1d(vmax).astype(np.float32, copy=False))
+
+    @staticmethod
+    def combine_min_max(file_list, dir_out=None):
+        """Min and max over the ``*-min-max`` files of corpus subsets;
+        saved to ``dir_out`` when given."""
+        total = MinMaxExtractor()
+        for path in file_list:
+            vmin, vmax = MinMaxExtractor.load(path)
+            total.add_sample(np.stack([np.squeeze(vmin), np.squeeze(vmax)]))
+        if dir_out is not None:
+            total.save(os.path.join(dir_out, ""))
+        return total

@@ -355,5 +355,34 @@ class LabelGen:
     time."""
 
     @staticmethod
+    def _save_to_npz(file_path, features, feature_name):
+        """Add or replace one array of an npz file: read, keep a backup,
+        write a temporary file and move it into place, so a crash cannot
+        corrupt features written before."""
+        file_path = str(file_path)
+        if not file_path.endswith(".npz"):
+            file_path += ".npz"
+        os.makedirs(os.path.dirname(os.path.abspath(file_path)),
+                    exist_ok=True)
+        data = {}
+        backup_path = file_path + ".bak"
+        if os.path.isfile(file_path):
+            try:
+                with np.load(file_path) as existing:
+                    data = {k: existing[k] for k in existing.files}
+            except Exception:
+                if os.path.isfile(backup_path):
+                    with np.load(backup_path) as existing:
+                        data = {k: existing[k] for k in existing.files}
+            else:
+                os.replace(file_path, backup_path)
+        data[feature_name] = features
+        tmp_path = file_path + ".tmp.npz"
+        np.savez(tmp_path, **data)
+        os.replace(tmp_path, file_path)
+        if os.path.isfile(backup_path):
+            os.remove(backup_path)
+
+    @staticmethod
     def trim_end_sample(sample, length, reverse=False):
         return DataReader.trim_end_sample(sample, length, reverse)

@@ -1,5 +1,4 @@
-"""WORLD acoustic features: the port of ``idiaptts_tpu/data/world_feat.py``
-without extraction and non-cepstral decoding.
+"""WORLD acoustic features: the port of ``idiaptts_tpu/data/world_feat.py``.
 
 Feature layout (the JAX package's and the reference's):
   cmp = [coded_sp(+d+dd) | lf0(+d+dd) | vuv | bap(+d+dd)]
@@ -11,35 +10,43 @@ mean-std_dev per stream directory without).  The raw-binary fixture
 layout (``.mcep``/``.lf0``/... float32 files and
 ``cmp_<sp_type><num>/*.cmp``) loads too.
 
+Extraction (``gen_data``, ``extract_features``) analyses each wav on the
+reader's ``device`` (``"cuda"`` unless the config says ``"cpu"``)
+through :mod:`idiaptts_torch.ops.world`; the corpus loop overlaps
+utterance i's host work (voicing refinement, deltas, statistics, npz
+writes) with utterance i+1's analysis on the card.  The statistics are
+numpy float64 on the host.
+
 Post-processing of predictions (``postprocess_sample``): denormalise,
 then per-stream MLPG through ``MLPG.generation`` (the one-shot solve
-kernel) on the reader's ``device`` (``"cuda"`` unless the config says
-``"cpu"``), three solves per utterance (coded spectrum, lf0, bap).
-
-Not ported yet (ROADMAP.md queue 1 item 5): extraction from audio
-(``gen_data``) and the non-cepstral spectrum decoding (``decode_sp``,
-``world_features_to_raw``).
+kernel) on the reader's ``device``, three solves per utterance (coded
+spectrum, lf0, bap).  ``decode_sp`` and ``world_features_to_raw`` turn
+coded features back into amplitude spectra and waveforms on a
+``device`` of their own.
 """
 
+import glob
 import logging
 import os
 
 import numpy as np
+import torch
 
 from idiaptts_torch.data.normalisation import (MeanCovarianceExtractor,
                                                MeanStdDevExtractor)
 from idiaptts_torch.data.reader import LabelGen, NpzDataReader
+from idiaptts_torch.ops import audio_io
+from idiaptts_torch.ops import mcep as mcep_ops
+from idiaptts_torch.ops.dispatch import resolve_device
+from idiaptts_torch.ops.interpolation import (add_deltas as _stack_deltas,
+                                              interpolate_lin)
 from idiaptts_torch.ops.mlpg import MLPG
 
 logger = logging.getLogger(__name__)
 
-_LATER_EXTRACT = ("WORLD feature extraction and non-cepstral spectrum "
-                  "decoding are not ported yet; ROADMAP.md queue 1 item "
-                  "5 ports them")
-
 
 class WorldFeatLabelGen(NpzDataReader, LabelGen):
-    """WORLD feature reader."""
+    """WORLD feature extractor and reader."""
 
     dir_lf0 = "lf0"
     dir_vuv = "vuv"
@@ -369,14 +376,338 @@ class WorldFeatLabelGen(NpzDataReader, LabelGen):
                               self.num_bap))
         return np.concatenate(out, axis=1)
 
+    # -- extraction -----------------------------------------------------
     @staticmethod
-    def decode_sp(*args, **kwargs):
-        raise NotImplementedError(_LATER_EXTRACT)
+    def _lf0_vuv(f0):
+        """f0 track -> (lf0, vuv) (T, 1) float32: frames below 20 Hz are
+        unvoiced, gaps are filled by :func:`interpolate_lin`."""
+        f0 = np.array(f0)
+        f0[f0 < 20.0] = 0.0
+        ip_f0, vuv = interpolate_lin(f0)
+        lf0 = np.log(np.maximum(ip_f0, 1e-10)).astype(np.float32)
+        return lf0, vuv.astype(np.float32)
 
     @staticmethod
-    def world_features_to_raw(*args, **kwargs):
-        raise NotImplementedError(_LATER_EXTRACT)
+    def world_extract_features(raw, fs, frame_shift_ms=5.0, device="cuda"):
+        """Waveform -> (amp_sp, lf0, vuv, bap) numpy: F0, the CheapTrick
+        envelope and the coded band aperiodicity, analysed on
+        ``device``."""
+        from idiaptts_torch.ops.world import (cheaptrick,
+                                              d4c_band_aperiodicity,
+                                              extract_f0)
+        from idiaptts_torch.ops.world.d4c import code_aperiodicity
+        f0 = extract_f0(raw, fs, frame_shift_ms, device=device)
+        with torch.inference_mode():
+            amp_sp = torch.sqrt(cheaptrick(raw, f0, fs, frame_shift_ms,
+                                           device=device))
+            bap = code_aperiodicity(d4c_band_aperiodicity(
+                raw, f0, fs, frame_shift_ms, device=device))
+        lf0, vuv = WorldFeatLabelGen._lf0_vuv(f0)
+        return amp_sp.cpu().numpy(), lf0, vuv, bap.cpu().numpy()
 
     @staticmethod
-    def gen_data(*args, **kwargs):
-        raise NotImplementedError(_LATER_EXTRACT)
+    def extract_features(dir_in, file_name, file_ext="wav",
+                         num_coded_sps=60, sp_type="mcep",
+                         preemphasis=0.0, frame_shift_ms=5.0,
+                         mgc_alpha=None, device="cuda"):
+        """One utterance -> ((coded_sp, lf0, vuv, bap), fs), analysed on
+        ``device``.  mcep and mgc run the whole analysis in one pass;
+        mfbanks codes the envelope as ``log(amp_sp**2 @ fbank.T)``;
+        amp_sp keeps it."""
+        audio_name = os.path.join(dir_in, "{}.{}".format(file_name,
+                                                         file_ext))
+        raw, fs = audio_io.get_raw(audio_name, preemphasis)
+        if sp_type in ("mcep", "mgc"):
+            from idiaptts_torch.ops.world.extract import world_analysis
+            f0, coded_sp, bap = world_analysis(
+                raw, fs, num_coded_sps, frame_shift_ms,
+                mgc_alpha=mgc_alpha, device=device)
+            lf0, vuv = WorldFeatLabelGen._lf0_vuv(f0)
+            return WorldFeatLabelGen.trim_to_shortest(
+                [coded_sp.astype(np.float32), lf0, vuv,
+                 bap.astype(np.float32)]), fs
+        amp_sp, lf0, vuv, bap = WorldFeatLabelGen.world_extract_features(
+            raw, fs, frame_shift_ms, device=device)
+        if sp_type == "mfbanks":
+            from idiaptts_torch.ops import stft as stft_ops
+            fbank = stft_ops.mel_filterbank(fs, (amp_sp.shape[1] - 1) * 2,
+                                            n_mels=num_coded_sps)
+            coded_sp = np.log(np.maximum(amp_sp ** 2 @ fbank.T, 1e-10))
+        elif sp_type == "amp_sp":
+            coded_sp = amp_sp
+        else:
+            raise NotImplementedError("Unknown sp_type " + sp_type)
+        return WorldFeatLabelGen.trim_to_shortest(
+            [coded_sp.astype(np.float32), lf0, vuv, bap]), fs
+
+    @staticmethod
+    def trim_to_shortest(features):
+        min_len = min(len(f) for f in features)
+        return [f[:min_len] for f in features]
+
+    # -- synthesis ----------------------------------------------------------
+    @staticmethod
+    def world_features_to_raw(amp_sp, lf0, vuv, bap, fs,
+                              frame_shift_ms=5.0, z=None, device="cuda"):
+        """WORLD features (amplitude spectrum, lf0, vuv, coded bap) ->
+        waveform (numpy) through the harmonic + noise synthesis on
+        ``device``, its noise drawn from a generator seeded with 0
+        unless ``z`` (complex (T, bins)) gives it."""
+        from idiaptts_torch.ops.world.d4c import decode_aperiodicity
+        from idiaptts_torch.ops.world.synthesis import world_synthesis
+        device = resolve_device(device)
+        f0 = np.exp(np.asarray(lf0).reshape(-1))
+        vuv = np.asarray(vuv).reshape(-1)
+        f0 = np.where(vuv > 0.5, f0, 0.0).astype(np.float32)
+        amp_sp = torch.as_tensor(np.asarray(amp_sp, np.float32),
+                                 device=device)
+        with torch.inference_mode():
+            ap = decode_aperiodicity(torch.as_tensor(
+                np.atleast_2d(np.asarray(bap, np.float32)), device=device),
+                amp_sp.shape[1], fs)
+            raw = world_synthesis(f0, amp_sp ** 2, ap, fs, frame_shift_ms,
+                                  z=z, device=device)
+        return raw.cpu().numpy()
+
+    @staticmethod
+    def mcep_to_amp_sp(coded_sp, fs, alpha=None, num_bins=None,
+                       device="cuda"):
+        """Mel-cepstrum (numpy) -> amplitude spectrum (numpy), rendered
+        on ``device``."""
+        device = resolve_device(device)
+        if alpha is None:
+            alpha = mcep_ops.fs_to_mgc_alpha(fs)
+        if num_bins is None:
+            num_bins = mcep_ops.fs_to_frame_length(fs) // 2 + 1
+        with torch.inference_mode():
+            return mcep_ops.mcep_to_amp_sp(torch.as_tensor(
+                np.asarray(coded_sp, np.float32), device=device), num_bins,
+                alpha).cpu().numpy()
+
+    @staticmethod
+    def decode_sp(coded_sp, sp_type="mcep", fs=None, alpha=None,
+                  n_fft=None, post_filtering=False, device="cuda"):
+        """Coded spectrum -> amplitude spectrum (numpy), on ``device``:
+        mcep and mgc through the warped-cepstral render, mfbanks through
+        the NNLS mel inversion, amp_sp as it is.  ``post_filtering``
+        applies the Merlin formant post-filter (cepstra only)."""
+        if post_filtering:
+            if sp_type in ("mcep", "mgc"):
+                with torch.inference_mode():
+                    coded_sp = mcep_ops.merlin_post_filter(
+                        torch.as_tensor(np.asarray(coded_sp, np.float32),
+                                        device=resolve_device(device)),
+                        alpha if alpha is not None
+                        else mcep_ops.fs_to_mgc_alpha(fs)).cpu().numpy()
+            else:
+                logger.warning("Post-filtering only implemented for "
+                               "cepstrum features.")
+        if sp_type in ("mcep", "mgc"):
+            num_bins = None if n_fft is None else n_fft // 2 + 1
+            return WorldFeatLabelGen.mcep_to_amp_sp(
+                coded_sp, fs, alpha=alpha, num_bins=num_bins, device=device)
+        if sp_type == "mfbanks":
+            from idiaptts_torch.ops import stft as stft_ops
+            return stft_ops.mfbanks_to_amp_sp(coded_sp, fs, n_fft=n_fft,
+                                              device=device).cpu().numpy()
+        if sp_type == "amp_sp":
+            return np.asarray(coded_sp)
+        raise NotImplementedError(
+            "Unknown feature type {}. No decoding method available."
+            .format(sp_type))
+
+    # -- corpus generation ------------------------------------------------
+    def _new_extractors(self):
+        cls = MeanCovarianceExtractor if self.add_deltas \
+            else MeanStdDevExtractor
+        return cls(), cls(), cls()
+
+    def _full_streams(self, coded_sp, lf0, bap):
+        if self.add_deltas:
+            return (_stack_deltas(coded_sp), _stack_deltas(lf0),
+                    _stack_deltas(bap))
+        return coded_sp, lf0, bap
+
+    def gen_data(self, dir_in, dir_out=None, file_id_list="", id_list=None,
+                 file_ext="wav", return_dict=False):
+        """Extract WORLD features for a corpus on the reader's device:
+        per-stream npz files (with deltas when configured) and online
+        normalisation statistics per stream (covariances in the cmp
+        directory with deltas).  Returns the coded spectrum's
+        statistics, and the {id: statics} dict with ``return_dict``."""
+        if id_list is None:
+            id_list = [os.path.splitext(os.path.basename(p))[0]
+                       for p in glob.glob(os.path.join(
+                           dir_in, "*." + file_ext))]
+            file_id_list_name = "all"
+        else:
+            file_id_list_name = os.path.splitext(
+                os.path.basename(str(file_id_list)))[0] or None
+            id_list = [os.path.basename(i) for i in id_list]
+
+        norm_sp, norm_lf0, norm_bap = self._new_extractors()
+        label_dict = {}
+        for file_name, (coded_sp, lf0, vuv, bap), fs in \
+                self._extract_corpus(dir_in, id_list, file_ext):
+            if return_dict:
+                label_dict[file_name] = \
+                    WorldFeatLabelGen.convert_from_world_features(
+                        coded_sp, lf0, vuv, bap)
+            coded_sp_full, lf0_full, bap_full = self._full_streams(
+                coded_sp, lf0, bap)
+            norm_sp.add_sample(coded_sp_full)
+            norm_lf0.add_sample(lf0_full)
+            norm_bap.add_sample(bap_full)
+            if dir_out is not None:
+                self.save_output(file_name, dir_out, coded_sp_full,
+                                 lf0_full, vuv, bap_full)
+
+        if dir_out is not None:
+            self._save_norm_params(dir_out, file_id_list_name, norm_sp,
+                                   norm_lf0, norm_bap)
+        norm_first = norm_sp.get_params()
+        if return_dict:
+            return label_dict, norm_first
+        return norm_first
+
+    def import_corpus(self, features_by_id, dir_out,
+                      file_id_list_name=None):
+        """Write precomputed WORLD statics ``{id: (coded_sp, lf0, vuv,
+        bap)}`` as a training-ready corpus: per-stream npz files and the
+        statistics ``gen_data`` would write."""
+        norm_sp, norm_lf0, norm_bap = self._new_extractors()
+        for file_name, (coded_sp, lf0, vuv, bap) in features_by_id.items():
+            coded_sp = np.atleast_2d(np.asarray(coded_sp, np.float32))
+            lf0 = np.asarray(lf0, np.float32).reshape(len(coded_sp), -1)
+            vuv = np.asarray(vuv, np.float32).reshape(len(coded_sp), -1)
+            bap = np.asarray(bap, np.float32).reshape(len(coded_sp), -1)
+            coded_sp_full, lf0_full, bap_full = self._full_streams(
+                coded_sp, lf0, bap)
+            norm_sp.add_sample(coded_sp_full)
+            norm_lf0.add_sample(lf0_full)
+            norm_bap.add_sample(bap_full)
+            self.save_output(file_name, dir_out, coded_sp_full, lf0_full,
+                             vuv, bap_full)
+        self._save_norm_params(dir_out, file_id_list_name, norm_sp,
+                               norm_lf0, norm_bap)
+
+    def _extract_corpus(self, dir_in, id_list, file_ext):
+        """Yield ``(id, (coded_sp, lf0, vuv, bap), fs)`` per utterance.
+
+        For mcep and mgc the analysis of utterance i+1 is enqueued on the
+        device before utterance i's result is awaited and refined on the
+        host."""
+        if self.sp_type not in ("mcep", "mgc"):
+            for file_name in id_list:
+                feats, fs = self.extract_features(
+                    dir_in, file_name, file_ext, self.num_coded_sps,
+                    self.sp_type, self.preemphasis, self.frame_shift_ms,
+                    mgc_alpha=self.mgc_alpha, device=self.device)
+                yield file_name, feats, fs
+            return
+
+        from idiaptts_torch.ops.world.extract import (
+            world_analysis_async, world_analysis_result)
+
+        def dispatch(file_name):
+            raw, fs = audio_io.get_raw(os.path.join(
+                dir_in, "{}.{}".format(file_name, file_ext)),
+                self.preemphasis)
+            handle = world_analysis_async(raw, fs, self.num_coded_sps,
+                                          self.frame_shift_ms,
+                                          mgc_alpha=self.mgc_alpha,
+                                          device=self.device)
+            return file_name, handle, fs
+
+        def finalise(pending):
+            file_name, handle, fs = pending
+            f0, coded_sp, bap = world_analysis_result(handle)
+            lf0, vuv = WorldFeatLabelGen._lf0_vuv(f0)
+            feats = WorldFeatLabelGen.trim_to_shortest(
+                [coded_sp.astype(np.float32), lf0, vuv,
+                 bap.astype(np.float32)])
+            return file_name, feats, fs
+
+        pending = None
+        for file_name in id_list:
+            current = dispatch(file_name)
+            if pending is not None:
+                yield finalise(pending)
+            pending = current
+        if pending is not None:
+            yield finalise(pending)
+
+    def save_output(self, file_name, dir_out, coded_sp_full, lf0_full, vuv,
+                    bap_full):
+        """Per-stream npz files; deltas under separate keys."""
+        factor = 3 if self.add_deltas else 1
+
+        def split(full, dim):
+            full = full if full.ndim > 1 else full[:, None]
+            return [full[:, i * dim:(i + 1) * dim] for i in range(factor)]
+
+        streams = [
+            (self.dir_coded_sps, self.sp_type,
+             split(coded_sp_full, self.num_coded_sps)),
+            (self.dir_lf0, self.ext_lf0, split(lf0_full, 1)),
+            (self.dir_vuv, self.ext_vuv,
+             [vuv if vuv.ndim > 1 else vuv[:, None]]),
+            (self.dir_bap, self.ext_bap, split(bap_full, self.num_bap)),
+        ]
+        for subdir, ext, parts in streams:
+            path = os.path.join(dir_out, subdir, file_name)
+            self._save_to_npz(path, parts[0].astype(np.float32), ext)
+            if self.add_deltas and ext != self.ext_vuv and len(parts) == 3:
+                self._save_to_npz(path, parts[1].astype(np.float32),
+                                  ext + "_deltas")
+                self._save_to_npz(path, parts[2].astype(np.float32),
+                                  ext + "_double_deltas")
+
+    def _save_norm_params(self, dir_out, file_id_list_name, norm_sp,
+                          norm_lf0, norm_bap):
+        prefix = (file_id_list_name + "-") if file_id_list_name else ""
+        streams = [(self.dir_coded_sps, norm_sp), (self.dir_lf0, norm_lf0),
+                   (self.dir_bap, norm_bap)]
+        if self.add_deltas:
+            cmp_dir = os.path.join(dir_out, "{}_{}{}".format(
+                self.dir_deltas, self.sp_type, self.num_coded_sps))
+            os.makedirs(cmp_dir, exist_ok=True)
+            for subdir, extractor in streams:
+                extractor.save(os.path.join(cmp_dir, prefix + subdir))
+        else:
+            for subdir, extractor in streams:
+                os.makedirs(os.path.join(dir_out, subdir), exist_ok=True)
+                extractor.save(os.path.join(dir_out, subdir, prefix[:-1]
+                                            if prefix else ""))
+
+
+def main(argv=None):
+    """Extract WORLD features of a corpus of wav files on the card (or
+    ``--device cpu``): per-stream npz files and their statistics."""
+    import argparse
+    parser = argparse.ArgumentParser(description=main.__doc__)
+    parser.add_argument("-a", "--dir_audio", required=True)
+    parser.add_argument("-o", "--dir_out", required=True)
+    parser.add_argument("-i", "--file_id_list", default=None)
+    parser.add_argument("--num_coded_sps", type=int, default=60)
+    parser.add_argument("--sp_type", default="mcep")
+    parser.add_argument("--add_deltas", action="store_true")
+    parser.add_argument("--frame_shift_ms", type=float, default=5.0)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    id_list = None
+    if args.file_id_list:
+        with open(args.file_id_list) as f:
+            id_list = [line.strip() for line in f if line.strip()]
+    gen = WorldFeatLabelGen(dir_labels=args.dir_out,
+                            add_deltas=args.add_deltas,
+                            num_coded_sps=args.num_coded_sps,
+                            sp_type=args.sp_type,
+                            frame_shift_ms=args.frame_shift_ms,
+                            device=args.device)
+    gen.gen_data(args.dir_audio, dir_out=args.dir_out,
+                 file_id_list=args.file_id_list or "", id_list=id_list)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
-"""Host-side audio I/O: the port's copy of what the synthesiser needs from
-``idiaptts_tpu/ops/audio_io.py`` (WAV read and write through scipy,
-PCM conversion, polyphase resampling).  numpy and scipy only."""
+"""Host-side audio I/O: the port's copy of ``idiaptts_tpu/ops/audio_io.py``
+(WAV read and write through scipy, PCM conversion, pre-emphasis and its
+inverse, polyphase resampling).  numpy and scipy only."""
 
 import os
 
@@ -51,6 +51,11 @@ def raw_to_file(file_path, raw, fs, file_format="wav"):
 def apply_preemphasis(raw, coefficient=0.97):
     return np.append(raw[0], raw[1:] - coefficient * raw[:-1]).astype(
         np.float32)
+
+
+def depreemphasis(raw, coefficient=0.97):
+    return scipy.signal.lfilter([1.0], [1.0, -coefficient],
+                                raw).astype(np.float32)
 
 
 def resample(raw, fs_in, fs_out):

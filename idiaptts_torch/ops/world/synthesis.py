@@ -1,20 +1,25 @@
-"""WORLD-style waveform synthesis from coded features: phase-coherent
-harmonics plus shaped noise.  Port of the mcep serving path of
-``idiaptts_tpu/ops/world/synthesis.py`` (``_sin_cycles``,
-``_harmonic_bank``, ``_ap_at_freqs``, ``_harmonic_part_mcep``,
-``_noise_part``).
+"""WORLD-style waveform synthesis: phase-coherent harmonics plus shaped
+noise, the port of ``idiaptts_tpu/ops/world/synthesis.py``.
+
+Two harmonic paths: from coded features (``_harmonic_part_mcep``, the
+serving path: the mel log envelope ``sum_m c_m cos(m * beta(w))``
+evaluated at the harmonic frequencies with the Chebyshev recurrence)
+and from amplitude spectra (``_harmonic_part``, behind
+:func:`world_synthesis`: the log envelope and log aperiodicity sampled
+at the harmonic frequencies through their real cepstra,
+``_sample_log_field``).  Both feed the degree-9 minimax sine bank on
+phase in cycles.
 
 Every function takes optional leading batch dims: the batch axis is
-written out instead of vmapped.  The reference's formulas are kept as
-formulas: the cepstral Chebyshev evaluation of the mel log envelope at
-the harmonic frequencies and the degree-9 minimax sine on phase in
-cycles.  ``_harmonic_part`` (log-field resampling), ``_sample_log_field``
-and ``world_synthesis`` are off the serving path and not ported yet.
+written out instead of vmapped.  The noise draw is an input: a
+``torch.Generator`` or an explicit complex draw ``z``.
 """
 
 import numpy as np
 import torch
 
+from idiaptts_torch.ops.dispatch import resolve_device
+from idiaptts_torch.ops.interpolation import interpolate_lin
 from idiaptts_torch.ops.world.d4c import _AP_FLOOR
 
 # Degree-9 odd minimax polynomial for sin(pi*t) on [-1, 1] (max error
@@ -72,6 +77,50 @@ def _harmonic_bank(f0_safe, amp, fs, hop):
     cycles = cycles.reshape(f0_s.shape)                          # (..., N)
     arg = torch.remainder(cycles[..., None] * h, 1.0)            # (..., N, H)
     return torch.sum(_upsample(amp, hop) * _sin_cycles(arg), dim=-1)
+
+
+def _sample_log_field(log_field, x, num_ceps=64):
+    """A smooth log-spectral field (..., T, K) over bins [0, fs/2]
+    evaluated at frequencies x (..., T, H) in cycles/sample in [0, 0.5]:
+    ``c0 + 2 sum_m c_m cos(2 pi m x)`` from the field's real cepstrum,
+    with the Chebyshev recurrence (one cos, the rest multiply-adds),
+    accumulated in the JAX package's order."""
+    K = log_field.shape[-1]
+    ceps = torch.fft.irfft(log_field, n=2 * (K - 1), dim=-1)[
+        ..., :num_ceps]
+    cos1 = torch.cos((2.0 * np.pi) * x)
+    acc = ceps[..., 0:1] + 2.0 * ceps[..., 1:2] * cos1
+    c_prev, c_cur = torch.ones_like(cos1), cos1
+    for m in range(2, num_ceps):
+        c_prev, c_cur = c_cur, 2.0 * cos1 * c_cur - c_prev
+        acc = acc + 2.0 * ceps[..., m:m + 1] * c_cur
+    return acc
+
+
+def _harmonic_part(f0, f0_cont, sp_power, ap, fs, hop, max_harmonics):
+    """Additive harmonic synthesis from amplitude spectra.  f0 (..., T)
+    with unvoiced zeros, f0_cont (..., T) gap-filled pitch for the phase,
+    sp_power and ap (..., T, K) -> (..., T * hop)."""
+    num_bins = sp_power.shape[-1]
+    bin_hz = fs / (2 * (num_bins - 1))
+    voiced = f0 > 0
+    f0_safe = f0_cont
+    h = torch.arange(1, max_harmonics + 1, dtype=torch.float32,
+                     device=sp_power.device)
+    harm_freq = f0_safe[..., None] * h
+    below_nyq = harm_freq < (fs / 2.0 - bin_hz)
+    x = torch.clamp(harm_freq / fs, 0.0, 0.5)
+    log_env = 0.5 * torch.log(torch.clamp(sp_power, min=1e-30))
+    log_ap = torch.log(torch.clamp(ap, min=1e-9))
+    # Clip before exp: divergent inputs must not overflow to inf (the
+    # masks below would turn it into NaN).
+    env_p = torch.exp(2.0 * torch.clamp(_sample_log_field(log_env, x),
+                                        -60.0, 25.0))
+    ap_h = torch.exp(torch.clamp(_sample_log_field(log_ap, x), -60.0, 0.0))
+    periodic_frac = torch.sqrt(torch.clamp(1.0 - ap_h ** 2, 0.0, 1.0))
+    amp = 2.0 * torch.sqrt(env_p * f0_safe[..., None] / fs)
+    amp = amp * periodic_frac * below_nyq * voiced[..., None]
+    return _harmonic_bank(f0_safe, amp, fs, hop)
 
 
 def _ap_at_freqs(bap, freqs, fs):
@@ -187,3 +236,39 @@ def _noise_part(f0, sp_power, ap, fs, hop, generator=None, z=None):
     raw = _overlap_add(frames, k, hop)
     norm = _overlap_add((w ** 2).expand(T, win), k, hop)
     return raw * torch.rsqrt(torch.clamp(norm, min=1e-12))
+
+
+def _as_float32(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+
+def world_synthesis(f0, sp_power, ap, fs, frame_shift_ms=5.0, seed=0,
+                    z=None, device="cuda"):
+    """Waveform (T * hop,) float32 tensor on ``device`` from WORLD
+    features: f0 (T,) Hz with 0 = unvoiced, sp_power (T, num_bins) power
+    envelope (the CheapTrick convention), ap (T, num_bins) aperiodicity
+    ratio in [0, 1].  The noise is drawn from a ``torch.Generator`` on
+    ``device`` seeded with ``seed``, unless ``z`` (complex (T,
+    num_bins)) gives it."""
+    device = resolve_device(device)
+    hop = int(fs * frame_shift_ms / 1000.0)
+    f0 = np.asarray(f0, np.float32).reshape(-1)
+    f0_cont = interpolate_lin(f0)[0][:, 0]
+    f0_cont = np.where(f0_cont > 0, f0_cont, 150.0)  # all-unvoiced guard
+    f0_t = torch.from_numpy(f0).to(device)
+    f0_cont = torch.from_numpy(f0_cont.astype(np.float32)).to(device)
+    sp_power = _as_float32(sp_power, device)
+    ap = _as_float32(ap, device)
+    max_harmonics = int(fs / 2.0 / 55.0)
+    generator = None
+    if z is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(seed))
+    with torch.inference_mode():
+        harm = _harmonic_part(f0_t, f0_cont, sp_power, ap, int(fs), hop,
+                              max_harmonics)
+        noise = _noise_part(f0_t, sp_power, ap, int(fs), hop,
+                            generator=generator, z=z)
+        return harm + noise

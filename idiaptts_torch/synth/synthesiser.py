@@ -1,22 +1,24 @@
 """Synthesiser: the port of ``idiaptts_tpu/synth/synthesiser.py``.
 
 ``run_world_synth`` takes post-processed WORLD statics per utterance
-(``[coded_sp | lf0 | vuv | bap]``, cepstral ``sp_type`` mcep or mgc) and
-vocodes them all in one padded batch through
+(``[coded_sp | lf0 | vuv | bap]``) and writes one wav file per
+utterance.  Cepstral codings (``sp_type`` mcep or mgc) are vocoded all
+in one padded batch through
 :class:`~idiaptts_torch.synth.pipeline.BatchedWorldSynth` on
-``hparams.device`` (one instance cached per configuration and device),
-writing one wav file per utterance.  ``copy_synth`` does the same from
-the original features (WORLD) or copies the original audio (raw and
-WaveNet vocoders).
+``hparams.device`` (one instance cached per configuration and device);
+the others (mfbanks, amp_sp) are decoded to amplitude spectra
+(``WorldFeatLabelGen.decode_sp``) and synthesised one utterance at a
+time through ``world_features_to_raw``.  ``copy_synth`` does the same
+from the original features (WORLD) or copies the original audio (raw
+and WaveNet vocoders).  ``run_griffin_lim`` reconstructs the phase of
+amplitude spectrograms on ``hparams.device``.
 
 ``run_r9y9wavenet_mulaw_world_feats_synth`` takes WORLD frame features
 per utterance, applies the optional Merlin post-filter to the coded
 spectrum, upsamples the features to the sample rate and vocodes every
 utterance in one padded batch through :class:`WaveNetVocoder` (one
 sampler launch on the card), writing one wav file per utterance cut to
-its length.  Not ported yet (ROADMAP.md queue 1 item 5): Griffin-Lim
-and the non-cepstral ``sp_type`` codings (mfbanks, amp_sp), which need
-the STFT ops.
+its length.
 """
 
 import logging
@@ -29,13 +31,12 @@ from idiaptts_torch.data.world_feat import WorldFeatLabelGen
 from idiaptts_torch.models.wavenet import WaveNetVocoder
 from idiaptts_torch.ops import audio_io
 from idiaptts_torch.ops import mcep as mcep_ops
+from idiaptts_torch.ops import stft as stft_ops
+from idiaptts_torch.ops.dispatch import resolve_device
 from idiaptts_torch.ops.interpolation import sample_linearly
 from idiaptts_torch.synth.pipeline import BatchedWorldSynth
 
 logger = logging.getLogger(__name__)
-
-_LATER_STFT = ("is not ported yet; ROADMAP.md queue 1 item 5 (STFT and "
-               "feature extraction ops) ports it")
 
 
 class Synthesiser:
@@ -54,23 +55,35 @@ class Synthesiser:
     def run_world_synth(synth_output, hparams, epoch=None,
                         use_model_name=True):
         """{id: [coded_sp, lf0, vuv, bap] statics} -> wav files, vocoded
-        in one padded batch on ``hparams.device``."""
+        on ``hparams.device``: cepstral codings in one padded batch, the
+        others one utterance at a time from their amplitude spectra."""
         fs = hparams.get("synth_fs", 16000)
         num_coded_sps = hparams.get("num_coded_sps", 60)
         num_bap = hparams.get("num_bap", 1)
         sp_type = hparams.get("sp_type", "mcep")
-        if sp_type not in ("mcep", "mgc"):
-            raise NotImplementedError(
-                "WORLD synthesis of sp_type {} ".format(sp_type)
-                + _LATER_STFT)
-        synth = Synthesiser._batched_world_synth(
-            num_coded_sps, fs, hparams.get("frame_size_ms", 5), num_bap,
-            bool(hparams.get("do_post_filtering")), hparams.get("mgc_alpha"),
-            hparams.get("device", "cuda"))
+        post_filter = bool(hparams.get("do_post_filtering"))
+        device = hparams.get("device", "cuda")
         ids = list(synth_output)
-        samples = [np.asarray(synth_output[i], np.float32)[
-            :, :num_coded_sps + 2 + num_bap] for i in ids]
-        wavs = synth(samples)
+        if sp_type in ("mcep", "mgc"):
+            synth = Synthesiser._batched_world_synth(
+                num_coded_sps, fs, hparams.get("frame_size_ms", 5), num_bap,
+                post_filter, hparams.get("mgc_alpha"), device)
+            wavs = synth([np.asarray(synth_output[i], np.float32)[
+                :, :num_coded_sps + 2 + num_bap] for i in ids])
+        else:
+            wavs = []
+            for id_name in ids:
+                coded, lf0, vuv, bap = \
+                    WorldFeatLabelGen.convert_to_world_features(
+                        np.asarray(synth_output[id_name], np.float32),
+                        contains_deltas=False, num_coded_sps=num_coded_sps,
+                        num_bap=num_bap)
+                amp_sp = WorldFeatLabelGen.decode_sp(
+                    coded, sp_type=sp_type, fs=fs,
+                    post_filtering=post_filter, device=device)
+                wavs.append(WorldFeatLabelGen.world_features_to_raw(
+                    amp_sp, lf0, vuv, bap, fs,
+                    hparams.get("frame_size_ms", 5), device=device))
         suffix = "_e{}".format(epoch) if epoch is not None else ""
         if use_model_name and hparams.get("model_name"):
             suffix += "_" + str(hparams.model_name)
@@ -116,7 +129,37 @@ class Synthesiser:
 
     @staticmethod
     def run_griffin_lim(synth_output, hparams, epoch=None, on_log=False):
-        raise NotImplementedError("Griffin-Lim synthesis " + _LATER_STFT)
+        """{id: amplitude spectrogram (T, bins)} -> wav files, the phase
+        reconstructed by 60 Griffin-Lim iterations on ``hparams.device``
+        from initial phases drawn by a generator seeded with 0.
+        ``on_log``: the spectrograms are log amplitudes."""
+        fs = hparams.get("synth_fs", 16000)
+        hop = int(fs * hparams.get("frame_size_ms", 5) / 1000)
+        device = resolve_device(hparams.get("device", "cuda"))
+        paths = {}
+        for id_name, amp in synth_output.items():
+            amp = np.asarray(amp)
+            if on_log:
+                amp = np.exp(amp)
+            amp = amp.astype(np.float32)
+            generator = torch.Generator(device=device)
+            generator.manual_seed(0)
+            with torch.inference_mode():
+                raw = stft_ops.griffin_lim(
+                    torch.as_tensor(amp, device=device),
+                    (amp.shape[1] - 1) * 2, hop, num_iters=60,
+                    generator=generator).cpu().numpy()
+            path = Synthesiser._out_path(id_name, hparams)
+            audio_io.raw_to_file(path, _norm_loudness(raw), fs)
+            paths[id_name] = path
+        return paths
+
+    @staticmethod
+    def run_griffin_lim_on_log(synth_output, hparams, epoch=None,
+                               use_model_name=True):
+        """:meth:`run_griffin_lim` of log-amplitude spectrograms."""
+        return Synthesiser.run_griffin_lim(synth_output, hparams,
+                                           epoch=epoch, on_log=True)
 
     @staticmethod
     def run_wavenet_vocoder(synth_output, hparams, epoch=None):

@@ -60,6 +60,14 @@ MODULES = [
     "idiaptts_torch.data.category",
     "idiaptts_torch.models.registry",
     "idiaptts_torch.utils.plotter",
+    "idiaptts_torch.ops.world",
+    "idiaptts_torch.ops.world.f0",
+    "idiaptts_torch.ops.world.cheaptrick",
+    "idiaptts_torch.ops.world.extract",
+    "idiaptts_torch.ops.stft",
+    "idiaptts_torch.data.audio_processing",
+    "idiaptts_torch.data.lf0",
+    "idiaptts_torch.data.alignment",
     "chip_smoke",
     "probe_bilstm_proj",
 ]

@@ -113,10 +113,12 @@ def test_normalisation_loads_what_jax_saves(tmp_path, cls):
 
 def test_question_generation_raises_naming_the_roadmap(fixtures_dir,
                                                      question_file):
-    """Question generation is ported now (``tests/unit/
-    test_torch_questions.py`` holds it to the JAX package): it runs on a
-    fixture label.  The feature generation that still waits, WORLD
-    extraction, raises naming its queue item."""
+    """Question generation (``tests/unit/test_torch_questions.py`` holds
+    it to the JAX package) runs on a fixture label; WORLD feature
+    generation, which raised here until it was ported, extracts one
+    fixture wav as the JAX package does (features within the bounds of
+    ``tests/unit/test_torch_feature_gen.py``: coded spectrum 0.2, lf0
+    1e-4, bap 0.05; the voicing equal)."""
     label_dir = os.path.join(fixtures_dir, "labels", "label_state_align")
     vmin, vmax = QuestionLabelGen.gen_data(label_dir, question_file,
                                            id_list=["gen-0001"])
@@ -124,8 +126,17 @@ def test_question_generation_raises_naming_the_roadmap(fixtures_dir,
                                              id_list=["gen-0001"])
     np.testing.assert_array_equal(vmin, ref_min)
     np.testing.assert_array_equal(vmax, ref_max)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        WorldFeatLabelGen.gen_data("wav", "WORLD")
+    wav_dir = os.path.join(fixtures_dir, "database", "wav")
+    labels, _ = WorldFeatLabelGen(num_coded_sps=20, device="cpu").gen_data(
+        wav_dir, id_list=["gen-0001"], return_dict=True)
+    ref, _ = JaxWorld(num_coded_sps=20).gen_data(
+        wav_dir, id_list=["gen-0001"], return_dict=True)
+    got, want = labels["gen-0001"], ref["gen-0001"]
+    assert got.shape == want.shape == (229, 23)
+    assert np.abs(got[:, :20] - want[:, :20]).max() < 0.2
+    np.testing.assert_allclose(got[:, 20], want[:, 20], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got[:, 21], want[:, 21])
+    assert np.abs(got[:, 22] - want[:, 22]).max() < 0.05
 
 
 def _loss_inputs(type_):

@@ -195,14 +195,44 @@ def test_copy_synth_raw_resamples_the_original_audio(tmp_path):
     assert 0.3 < np.abs(raw).max() < 0.6
 
 
-def test_non_cepstral_synthesis_raises(tmp_path):
+def _read(path):
+    raw, fs = audio_io.get_raw(path)
+    assert fs == 16000
+    return raw
+
+
+def test_non_cepstral_synthesis_raises(fixtures_dir, tmp_path):
+    """The non-cepstral codings and Griffin-Lim, which raised here until
+    they were ported, run: mfbanks features extracted from a fixture wav
+    are decoded (``decode_sp``, within 1e-3 of the peak of the JAX
+    package's decode) and vocoded (``run_world_synth``) as
+    ``world_features_to_raw`` vocodes the decoded spectrum (the same
+    seeded noise; frame energies within 0.01 dB after the PCM16 write);
+    ``run_griffin_lim`` writes one wav per spectrogram."""
+    wav_dir = os.path.join(fixtures_dir, "database", "wav")
+    (coded, lf0, vuv, bap), _ = JaxWorld.extract_features(
+        wav_dir, "gen-0001", num_coded_sps=NUM_SPS, sp_type="mfbanks")
+    amp = WorldFeatLabelGen.decode_sp(coded, sp_type="mfbanks", fs=16000,
+                                      device="cpu")
+    amp_j = np.asarray(JaxWorld.decode_sp(coded, sp_type="mfbanks",
+                                          fs=16000))
+    assert np.abs(amp - amp_j).max() < 1e-3 * amp_j.max()
     hp = _hparams(tmp_path, sp_type="mfbanks")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Synthesiser.run_world_synth({"a": np.zeros((4, 23))}, hp)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Synthesiser.run_griffin_lim({"a": np.zeros((4, 5))}, hp)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        WorldFeatLabelGen.decode_sp(np.zeros((4, 20)), sp_type="mfbanks")
+    feats = WorldFeatLabelGen.convert_from_world_features(coded, lf0, vuv,
+                                                          bap)
+    paths = Synthesiser.run_world_synth({"a": feats}, hp)
+    wav = _read(paths["a"])
+    ref = WorldFeatLabelGen.world_features_to_raw(amp, lf0, vuv, bap,
+                                                  16000, device="cpu")
+    assert wav.shape == ref.shape == (len(coded) * 80,)
+    ref = np.clip(ref / max(1.0, np.abs(ref).max() / 0.85), -1, 1)
+    frame_db = [10 * np.log10(np.mean(w.reshape(-1, 80) ** 2, axis=1)
+                              + 1e-10) for w in (wav, ref)]
+    loud = frame_db[1] > frame_db[1].max() - 40.0
+    assert np.abs(frame_db[0] - frame_db[1])[loud].max() < 0.01
+    paths = Synthesiser.run_griffin_lim({"a": amp_j, "b": amp_j[:50]}, hp)
+    assert _read(paths["a"]).shape == ((len(amp_j) - 1) * 80,)
+    assert _read(paths["b"]).shape == (49 * 80,)
 
 
 def test_world_synth_cache_is_keyed_by_device():
