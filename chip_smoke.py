@@ -169,6 +169,34 @@ other error raises at once):
    utterance's amplitude spectrum through ``run_world_synth`` (``sp_type
    = "amp_sp"``) and its STFT magnitude through ``run_griffin_lim`` on
    the card: finite and audible.
+13. The remaining models and trainers.  (a) ``WaveNetVocoderTrainer``
+   at ``WaveNetWrapper.Config``'s defaults (20 layers, R = 64, 256
+   classes) on the six fixture wavs with their 20-mcep WORLD
+   conditioning (23 channels upsampled to 16 kHz) in 0.5 s windows,
+   ``WN_TRAIN_EPOCHS`` epochs: the validation loss falls, the train step
+   is timed; ``save_for_vocoding`` -> ``WaveNetVocoder.load`` gives the
+   same parameters and the same draw; ``synth`` of two utterances
+   launches K8 (xRT).  (b) ``AtomVUVDistPosModelTrainer`` with its
+   default model ``RNNDYN-2_RELU_1024-1_BiLSTM_512-1_FC_7`` on the
+   questions zero-padded to 409 columns, 3 epochs (K7's projection, K4
+   and K5 in training; K6's projection and K3 in ``benchmark``), then
+   ``AtomNeuralFilterModelTrainer`` and
+   ``PhraseAtomNeuralFilterModelTrainer`` adopt it and train: F0-RMSE,
+   VDE, the step ms and the IIR filter loops' ms.  (c) VTLN at full
+   width: the Interspeech'18 pre-net under ``AllPassWarpLayer`` in a
+   ``Sequential`` with the pin recipe's speaker input, trained (K7's
+   projection, K4, K5), then ``benchmark`` (K3, K1) with the MCD sweep.
+   (d) The atom, flat, phrase and VTLN pin recipes
+   (tests/integration/test_quality_pins.py:165-320) as published, from
+   the JAX draw, one-sided at 1% to the pins read from that file's text.
+   (e) ``EncDecMonophoneModelTrainer`` at its defaults (encoder
+   256-256, two frames a step, fixed attention) two epochs, its train
+   step timed with the device's idle share from torch.profiler, then
+   teacher-forced and free-running forwards card against CPU;
+   ``ClassificationTrainer`` on the fixture questions; a
+   ``WindowingWrapper`` around a small BiLSTM model card against CPU.
+   Every model of (a)-(c) is also held against a CPU copy on one
+   utterance (``ATOM_TOL``, ``WN_TOL``, ``ENC_DEC_TOL``).
 
 The last three lines of standard output are the kernels JSON (every
 kernel with its bound, its plain version's and the library call's time),
@@ -390,6 +418,33 @@ EXTRACT_TRAIN_KERNELS = ("bilstm_proj", "bilstm_recurrence_train",
 EXTRACT_SYNTH_KERNELS = ("mlpg_oneshot",)
 EXTRACT_TOL = {"voicing": 0.99, "f0_rel": 5e-4, "coded_max": 0.2,
                "coded_mean": 5e-3, "bap_max": 1.5, "bap_mean": 0.05}
+
+# Phase 13 (the remaining models and trainers): the fixtures' wcad atoms
+# and their thetas; the production question width (the fixture columns
+# zero-padded, as phase 11 pads them); the VTLN pre-net, the
+# Interspeech'18 model; the trainers' epochs; the WaveNet recipe's Noam
+# warm-up cut to the run's dozen steps (the trainer's default is 4000).
+WCAD_DIR = os.path.join(FIXTURES, "wcad-0.030_0.060_0.090_0.120_0.150")
+ATOM_THETAS = (0.03, 0.06, 0.09, 0.12, 0.15)
+ATOM_D_IN = ICASSP19_D_IN
+ATOM_EPOCHS = 3
+VTLN_PRE_NET = MODEL_STRING
+VTLN_EPOCHS = 3
+WN_TRAIN_EPOCHS = 4
+WN_TRAIN_WARMUP = 8
+ENC_DEC_EPOCHS = 2
+# Card against CPU in phase 13, relative to the output's magnitude.  The
+# atom, neural-filter, VTLN and windowed models run bf16 Dense layers and
+# the BiLSTM kernels, whose outputs may sit one bf16 ulp from the CPU's
+# plain versions and ride the recurrence: phase 4's 4 bf16 ulps
+# (measured on an H100 at 700 W: the atom model 4.95e-3, VTLN 3.58e-3,
+# the windowing wrapper 2.79e-3, the flat and phrase models 4.4e-4 and
+# 2.4e-5; the WaveNet logits 0).  The encoder-decoder is float32
+# throughout (TF32 off): cuBLAS and the CPU sum in other orders and the
+# decoder carries the difference through its chunks, teacher-forced and
+# free-running (measured 7.1e-7 and 8.5e-7).
+ATOM_TOL = 2.0 ** -6
+ENC_DEC_TOL = 1e-3
 
 # Checks that failed; the script exits non-zero if any did.
 FAILURES = []
@@ -2173,9 +2228,9 @@ def evaluate_against_cpu(torch, trainer, hp, ids, org_feats, post, wavs):
 
 # -- phase 10 ----------------------------------------------------------------
 
-def read_pins():
-    """(PINNED_ACOUSTIC, PINNED_DURATION_RMSE) from the pin file's text
-    (it imports the JAX package, so it is parsed, not imported)."""
+def read_pins(names=("PINNED_ACOUSTIC", "PINNED_DURATION_RMSE")):
+    """The named pins from the pin file's text (it imports the JAX
+    package, so it is parsed, not imported)."""
     import ast
     with open(PIN_FILE) as f:
         tree = ast.parse(f.read())
@@ -2183,10 +2238,9 @@ def read_pins():
     for node in tree.body:
         if isinstance(node, ast.Assign) and len(node.targets) == 1 \
                 and isinstance(node.targets[0], ast.Name) \
-                and node.targets[0].id in ("PINNED_ACOUSTIC",
-                                           "PINNED_DURATION_RMSE"):
+                and node.targets[0].id in names:
             values[node.targets[0].id] = ast.literal_eval(node.value)
-    return values["PINNED_ACOUSTIC"], values["PINNED_DURATION_RMSE"]
+    return tuple(values[n] for n in names)
 
 
 def check_pinned(key, got, pinned):
@@ -2220,7 +2274,7 @@ def from_jax_draw(trainer):
     from idiaptts_torch.models import convert, flax_init
     handler = trainer.model_handler
     convert.load_flax_params(handler.model,
-                             flax_init.rnn_dyn_params(handler.model_config))
+                             flax_init.model_params(handler.model_config))
 
 
 def fixture_ids():
@@ -3301,6 +3355,652 @@ def feature_extraction(torch, device, card, workdir):
     return dict(voice=voice, summary=summary)
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+def padded_questions(workdir, width=ATOM_D_IN):
+    """The fixture question matrices zero-padded to ``width`` columns (the
+    production question width) with their min-max statistics, in a
+    directory of the workdir."""
+    from idiaptts_torch.data.normalisation import MinMaxExtractor
+    questions, _, num_q = load_corpus()
+    out_dir = os.path.join(workdir, "questions{}".format(width))
+    os.makedirs(out_dir, exist_ok=True)
+    extractor = MinMaxExtractor()
+    for id_name, q in zip(fixture_ids(), questions):
+        padded = np.zeros((len(q), width), np.float32)
+        padded[:, :num_q] = q
+        padded.tofile(os.path.join(out_dir, id_name + ".questions"))
+        extractor.add_sample(padded)
+    extractor.save(os.path.join(out_dir, "all"))
+    return out_dir
+
+
+def model_against_cpu(torch, model, data, lengths, out_name, tol, what,
+                      training=False):
+    """A model's output on the card against a CPU copy of it on the same
+    inputs, relative to the output's largest magnitude."""
+    cpu = copy.deepcopy(model).to("cpu")
+    device = next(model.parameters()).device
+    with torch.no_grad():
+        got = model({k: v.to(device) for k, v in data.items()},
+                    lengths=lengths.to(device), training=training)[
+                        out_name].float().cpu()
+        ref = cpu({k: v.cpu() for k, v in data.items()},
+                  lengths=lengths.cpu(), training=training)[out_name].float()
+    err = (got - ref).abs().max().item() / max(ref.abs().max().item(),
+                                               1e-12)
+    _check("card vs CPU", err, tol, what + " (rel)")
+    return err
+
+
+def one_utterance(trainer, names):
+    """The first training utterance's inputs as a batch of one: tensors
+    of ``names`` and the lengths."""
+    import torch
+    from idiaptts_torch.data.dataset import collate_batch
+    uid = trainer.id_list_train[0]
+    batch = collate_batch([trainer.dataset_train.get_id_name(uid)[0]])
+    data = {n: torch.as_tensor(batch[n]) for n in names}
+    lengths = torch.as_tensor(np.asarray(
+        batch["_lengths"][names[0]], np.int64))
+    return data, lengths
+
+
+def step_ms(torch, trainer, reps=3):
+    """CUDA-event ms of one handler train step on a fixed batch of
+    training utterances (after one warm-up step)."""
+    from idiaptts_torch.data.dataset import collate_batch
+    ids = trainer.id_list_train[:trainer.hparams.batch_size_train]
+    batch = collate_batch([trainer.dataset_train.get_id_name(i)[0]
+                           for i in ids])
+    return cuda_ms(torch, lambda: trainer.model_handler.process_batches(
+        [batch]), reps), batch
+
+
+def step_split(torch, trainer, batch, ms, what, card):
+    """Device busy ms of one handler train step on ``batch`` from
+    torch.profiler, the idle share against the step's ``ms``, and the
+    three kernels with the most device time; logged."""
+    kernels = profile_step(torch, lambda: trainer.model_handler
+                           .process_batches([batch]))
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+    log("  {} step: device busy {:.2f} of {:.2f} ms (idle {:.1%}); most "
+        "device time: {} [{}]".format(what, busy, ms, 1 - busy / ms,
+                                      ", ".join("{} {:.2f} ms".format(
+                                          k[:48], v) for k, v in top),
+                                      card))
+    return dict(busy_ms=busy, idle=1 - busy / ms,
+                top={k[:80]: v for k, v in top})
+
+
+def set_loss(trainer, ids):
+    """Mean evaluation loss of the handler over ``ids``."""
+    return trainer.model_handler.process_batches(trainer._batches(
+        trainer.dataset_val, ids, 1, prefetch=0), training=False)[0]
+
+
+def wavenet_training(torch, device, card, workdir):
+    """(a) WaveNetVocoderTrainer at WaveNetWrapper.Config's defaults on
+    the fixture wavs and their 20-mcep WORLD conditioning, 0.5 s windows;
+    then save_for_vocoding -> WaveNetVocoder.load -> generation (K8)."""
+    from idiaptts_torch.models.wavenet import WaveNetVocoder, generate
+    from idiaptts_torch.train.wavenet_trainer import WaveNetVocoderTrainer
+    hp = WaveNetVocoderTrainer.create_hparams()
+    hp.device = str(device)
+    hp.out_dir = workdir
+    hp.model_name = "wavenet_trained"
+    hp.synth_dir = os.path.join(workdir, "wavenet_synth")
+    hp.epochs = WN_TRAIN_EPOCHS
+    hp.batch_size_train = 2
+    hp.batch_size_val = 1
+    hp.learning_rate = 1e-3
+    hp.seed = 1
+    hp.test_set_perc = 0.0
+    hp.val_set_perc = 0.25
+    hp.num_coded_sps_cond = NUM_SPS
+    hp.num_coded_sps = NUM_SPS
+    # The Noam warm-up cut to the run's few steps.
+    hp.scheduler_args = {"warmup_steps": WN_TRAIN_WARMUP}
+    trainer = WaveNetVocoderTrainer(
+        hp, fixture_ids(), dir_world_features=os.path.join(FIXTURES, "WORLD"),
+        dir_audio=os.path.join(FIXTURES, "database", "wav"))
+    trainer.init(hp)
+    cfg = trainer.model_handler.model_config
+    log("  model: {} layers, R={}, {} classes, C={}".format(
+        cfg.num_layers, cfg.residual_channels, cfg.out_channels,
+        cfg.cond_channels))
+    val_ids = trainer.id_list_val
+    before = set_loss(trainer, val_ids)
+    (_, train_loss), launches = counted(torch, lambda: trainer.train(hp))
+    after = set_loss(trainer, val_ids)
+    log("  {} epochs: train loss {} | validation loss {:.4f} -> {:.4f}"
+        .format(WN_TRAIN_EPOCHS, ["{:.4f}".format(v) for v in train_loss],
+                before, after))
+    if not (np.all(np.isfinite(train_loss)) and np.isfinite(after)
+            and after < before):
+        fail("WaveNet training: the validation loss did not fall: "
+             "{} -> {}".format(before, after))
+    ms, batch = step_ms(torch, trainer)
+    samples = int(np.sum(batch["_lengths"]["target_quantised"]))
+    log("  train step B={} T={}: {:.2f} ms, {:.0f} samples/s [{}]".format(
+        batch["cond_features"].shape[0], batch["cond_features"].shape[1], ms,
+        samples / (ms / 1e3), card))
+    split = step_split(torch, trainer, batch, ms, "WaveNet train", card)
+
+    bundle = os.path.join(workdir, "wavenet_voc", "voc")
+    trainer.save_for_vocoding(hp, bundle)
+    vocoder = WaveNetVocoder.load(os.path.join(bundle, "nn"), device=device)
+    ours = trainer.model_handler.model.state_dict()
+    theirs = vocoder.model.state_dict()
+    if not (sorted(ours) == sorted(theirs)
+            and all(torch.equal(ours[k], theirs[k]) for k in ours)):
+        fail("save_for_vocoding does not load back to the same parameters")
+
+    ids = val_ids + trainer.id_list_train[:1]
+    (paths, wall), gen_launches = counted(torch, lambda: _timed(
+        torch, lambda: trainer.synth(hp, ids)))
+    audio_s = 0.0
+    for path in paths.values():
+        from idiaptts_torch.ops import audio_io
+        raw, fs = audio_io.get_raw(path)
+        audio_s += len(raw) / fs
+        if not (fs == FS and len(raw) and np.all(np.isfinite(raw))):
+            fail("WaveNet generation wrote a bad wav: " + path)
+    require_launches(gen_launches, VOCODE_KERNELS, "WaveNet generation")
+    log("  gen_waveform of {} utterances ({:.2f} s of audio): {:.3f} s, "
+        "{:.2f}x real time [{}]".format(len(ids), audio_s, wall,
+                                        audio_s / wall, card))
+    sample, _ = trainer.dataset_val.get_id_name(val_ids[0])
+    cond = sample["cond_features"][:WN_T_CPU * 5]
+    with torch.no_grad():
+        a = vocoder.generate(cond, seed=0)
+        b = generate(trainer.model_handler.model, cfg, cond,
+                     generator=torch.Generator(device=device).manual_seed(0))
+    if not np.array_equal(a, b):
+        fail("the loaded vocoder draws other samples than the trainer")
+    # (f) The teacher-forced network on the card against the CPU.
+    data, lengths = one_utterance(trainer, ("cond_features",
+                                            "target_quantised"))
+    data = {k: v[:, :WN_T_CPU * 5] for k, v in data.items()}
+    err = model_against_cpu(torch, trainer.model_handler.model, data,
+                            torch.clamp(lengths, max=WN_T_CPU * 5),
+                            "pred_logits", WN_TOL,
+                            "WaveNet logits, T={}".format(WN_T_CPU * 5))
+    del trainer, vocoder
+    torch.cuda.empty_cache()
+    return dict(train_launches=launches, gen_launches=gen_launches,
+                train_loss=train_loss, val_loss=(before, after),
+                step=dict(B=int(batch["cond_features"].shape[0]),
+                          T=int(batch["cond_features"].shape[1]), ms=ms,
+                          **split),
+                gen=dict(utterances=len(ids), audio_s=audio_s, wall_s=wall,
+                         xrt=audio_s / wall), cpu_rel=err)
+
+
+def atom_hparams(cls, device, workdir, name, epochs, num_questions,
+                 batch=3, lr=1e-3, best=False):
+    hp = cls.create_hparams()
+    hp.device = str(device)
+    hp.num_questions = num_questions
+    hp.thetas = list(ATOM_THETAS)
+    hp.out_dir = os.path.join(workdir, name)
+    hp.model_name = name
+    hp.epochs = epochs
+    hp.batch_size_train = batch
+    hp.batch_size_val = 6
+    hp.learning_rate = lr
+    hp.seed = 1
+    hp.test_set_perc = 0.0
+    hp.val_set_perc = 0.25
+    hp.use_best_as_final_model = best
+    return hp
+
+
+def atom_dirs(questions_dir):
+    return dict(dir_question_labels=questions_dir, dir_atom_labels=WCAD_DIR,
+                dir_world_features=os.path.join(FIXTURES, "WORLD"))
+
+
+def atom_family(torch, device, card, workdir):
+    """(b) AtomVUVDistPosModelTrainer with its default full-width model
+    on the 409-column questions, 3 epochs (K7's projection, K4, K5 in
+    training; K6's projection and K3 in benchmark), then the neural
+    filter and phrase trainers adopt it and train."""
+    from idiaptts_torch.train.atom_trainers import (
+        AtomNeuralFilterModelTrainer, AtomVUVDistPosModelTrainer,
+        PhraseAtomNeuralFilterModelTrainer)
+    dirs = atom_dirs(padded_questions(workdir))
+    ids = fixture_ids()
+    atom_hp = atom_hparams(AtomVUVDistPosModelTrainer, device, workdir,
+                           "atom_full", ATOM_EPOCHS, ATOM_D_IN)
+    atom = AtomVUVDistPosModelTrainer(atom_hp, ids, **dirs)
+    atom.init(atom_hp)
+    log("  atom model: {} layer groups, {} -> 7".format(
+        len(atom.model_handler.model_config.layer_configs), ATOM_D_IN))
+    (_, loss), train_launches = counted(torch, lambda: atom.train(atom_hp))
+    require_launches(train_launches, TRAIN_KERNELS, "atom training")
+    if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]):
+        fail("atom training loss did not fall: {}".format(loss))
+    scores, bench_launches = counted(torch, lambda: atom.benchmark(
+        atom_hp, atom.id_list_train))
+    require_launches(bench_launches, ("bilstm_proj", "bilstm_recurrence"),
+                     "atom benchmark")
+    atom_ms, batch = step_ms(torch, atom)
+    out = {"atom": dict(train_loss=loss, scores=scores, step_ms=atom_ms,
+                        split=step_split(torch, atom, batch, atom_ms,
+                                         "atom train", card),
+                        train_launches=train_launches,
+                        bench_launches=bench_launches)}
+    log("  atom: train loss {} | F0-RMSE {:.3f} VDE {:.4f} | step {:.2f} ms"
+        " [{}]".format(["{:.4f}".format(v) for v in loss], scores[0],
+                       scores[1], atom_ms, card))
+    data, lengths = one_utterance(atom, ("questions",))
+    out["atom"]["cpu_rel"] = model_against_cpu(
+        torch, atom.model_handler.model, data, lengths, "pred_atoms",
+        ATOM_TOL, "atom model, T={}".format(int(lengths[0])))
+
+    flat_hp = atom_hparams(AtomNeuralFilterModelTrainer, device, workdir,
+                           "flat_full", ATOM_EPOCHS, ATOM_D_IN)
+    flat = AtomNeuralFilterModelTrainer(flat_hp, ids, **dirs)
+    flat.init_atom(flat_hp, atom)
+    flat.init(flat_hp)
+    flat.adopt_atom_params()
+    phrase_hp = atom_hparams(PhraseAtomNeuralFilterModelTrainer, device,
+                             workdir, "phrase_full", ATOM_EPOCHS, ATOM_D_IN)
+    phrase = PhraseAtomNeuralFilterModelTrainer(phrase_hp, ids, **dirs)
+    phrase.init_flat(phrase_hp, flat)
+    phrase.init(phrase_hp)
+    for name, trainer, hp, out_name in (
+            ("flat", flat, flat_hp, "pred_intonation"),
+            ("phrase", phrase, phrase_hp, "pred_intonation_phrase")):
+        if trainer is phrase:
+            phrase.adopt_flat_params()
+        (_, loss), launches = counted(torch, lambda: trainer.train(hp))
+        require_launches(launches, TRAIN_KERNELS, name + " training")
+        if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]):
+            fail("{} training loss did not fall: {}".format(name, loss))
+        scores = trainer.benchmark(hp, trainer.id_list_train)
+        ms, batch = step_ms(torch, trainer)
+        iir = iir_ms(torch, trainer, batch, out_name)
+        out[name] = dict(train_loss=loss, scores=scores, step_ms=ms,
+                         iir_ms=iir, train_launches=launches,
+                         split=step_split(torch, trainer, batch, ms,
+                                          name + " train", card))
+        log("  {}: train loss {} | F0-RMSE {:.3f} VDE {:.4f} | step {:.2f} "
+            "ms, of it the IIR filter loops {:.2f} ms fwd+bwd ({:.0%}) [{}]"
+            .format(name, ["{:.4f}".format(v) for v in loss], scores[0],
+                    scores[1], ms, iir, iir / ms, card))
+        data, lengths = one_utterance(trainer, ("questions",))
+        out[name]["cpu_rel"] = model_against_cpu(
+            torch, trainer.model_handler.model, data, lengths, out_name,
+            ATOM_TOL, "{} model, T={}".format(name, int(lengths[0])))
+    del atom, flat, phrase
+    torch.cuda.empty_cache()
+    return out
+
+
+def iir_ms(torch, trainer, batch, out_name):
+    """CUDA-event ms of the intonation filter banks alone, forward and
+    backward, on the amplitudes a train step gives them."""
+    model = trainer.model_handler.model
+    nf = getattr(model, "neural_filters", model)
+    banks = [nf.intonation_filters] + ([model.phrase_filter]
+                                       if model is not nf else [])
+    device = trainer.model_handler.device
+    amps = torch.randn(batch["questions"].shape[0],
+                       batch["questions"].shape[1], nf.num_thetas,
+                       device=device, generator=torch.Generator(
+                           device=device).manual_seed(0))
+
+    def run():
+        total = 0.0
+        for bank in banks:
+            x = amps if bank is nf.intonation_filters \
+                else amps.sum(-1, keepdim=True)
+            total = total + bank(x).sum()
+        total.backward()
+    return cuda_ms(torch, run, 2)
+
+
+def vtln_config(trainer, hp, pre_net_string, d_in):
+    from idiaptts_torch.models.rnn_dyn import convert_legacy_string
+    pre_net = convert_legacy_string(pre_net_string, d_in)
+    pre_net.input_names = ("questions",)
+    pre_net.output_names = ("pre_net_output",)
+    return trainer.build_model_config(hp, pre_net, NUM_SPS)
+
+
+def vtln_trainer(torch, device, workdir, name, pre_net_string, d_in,
+                 questions_dir, epochs, lr, best):
+    from idiaptts_torch.data.category import CategoryDataReader
+    from idiaptts_torch.train.vtln_trainer import \
+        VTLNSpeakerAdaptionModelTrainer
+    hp = VTLNSpeakerAdaptionModelTrainer.create_hparams()
+    hp.device = str(device)
+    hp.num_questions = d_in
+    hp.num_coded_sps = NUM_SPS
+    hp.out_dir = os.path.join(workdir, name)
+    hp.model_name = name
+    hp.epochs = epochs
+    hp.batch_size_train = 3
+    hp.batch_size_val = 6
+    hp.learning_rate = lr
+    hp.seed = 1
+    hp.test_set_perc = 0.0
+    hp.val_set_perc = 0.25
+    hp.use_best_as_final_model = best
+    hp.warp_matrix_size = NUM_SPS
+    trainer = VTLNSpeakerAdaptionModelTrainer(
+        hp, fixture_ids(), dir_question_labels=questions_dir,
+        dir_world_features=os.path.join(FIXTURES, "WORLD"))
+    readers = trainer.default_data_reader_configs(hp)
+    # The pin recipe's speaker input (test_quality_pins.py:308).
+    readers.append(CategoryDataReader.Config(
+        name="speaker_embedding", get_category_fn=lambda idn: [0.5]))
+    trainer.init(hp, model_config=vtln_config(trainer, hp, pre_net_string,
+                                              d_in),
+                 data_reader_configs=readers)
+    return trainer, hp
+
+
+def vtln_full(torch, device, card, workdir):
+    """(c) The Interspeech'18 pre-net under the all-pass warp layer in a
+    Sequential at full width: training (K7's projection, K4, K5), then
+    benchmark (K3 and the one-shot MLPG K1)."""
+    trainer, hp = vtln_trainer(torch, device, workdir, "vtln_full",
+                               VTLN_PRE_NET, ATOM_D_IN,
+                               padded_questions(workdir), VTLN_EPOCHS,
+                               5e-4, False)
+    (_, loss), train_launches = counted(torch, lambda: trainer.train(hp))
+    require_launches(train_launches, TRAIN_KERNELS, "VTLN training")
+    if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]):
+        fail("VTLN training loss did not fall: {}".format(loss))
+    scores, bench_launches = counted(torch, lambda: trainer.benchmark(
+        hp, trainer.id_list_train))
+    require_launches(bench_launches, ("bilstm_proj", "bilstm_recurrence",
+                                      "mlpg_oneshot"), "VTLN benchmark")
+    ms, batch = step_ms(torch, trainer)
+    split = step_split(torch, trainer, batch, ms, "VTLN train", card)
+    log("  VTLN: train loss {} | MCD {:.3f} F0-RMSE {:.3f} VDE {:.4f} BAP "
+        "{:.3f} | sweep {} | step {:.2f} ms [{}]".format(
+            ["{:.4f}".format(v) for v in loss], *scores,
+            {k: round(v, 4) for k, v in trainer.mcd_sweep.items()}, ms,
+            card))
+    sweep = dict(trainer.mcd_sweep)
+    data, lengths = one_utterance(trainer, ("questions", "speaker_embedding"))
+    err = model_against_cpu(torch, trainer.model_handler.model, data,
+                            lengths, "pred_acoustic_features", ATOM_TOL,
+                            "VTLN model, T={}".format(int(lengths[0])))
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(train_loss=loss, scores=scores, sweep=sweep, step_ms=ms,
+                split=split, train_launches=train_launches,
+                bench_launches=bench_launches, cpu_rel=err)
+
+
+def intonation_pins(torch, device, card, workdir):
+    """(d) The atom, flat/phrase and VTLN pin recipes of
+    tests/integration/test_quality_pins.py:165-320 as published, from the
+    JAX draw, each score held one-sided at 1% to the pins read from that
+    file's text."""
+    from idiaptts_torch.models.rnn_dyn import convert_legacy_string
+    from idiaptts_torch.train.atom_trainers import (
+        AtomModelTrainer, AtomNeuralFilterModelTrainer,
+        AtomVUVDistPosModelTrainer, PhraseAtomNeuralFilterModelTrainer)
+    pinned_atom, pinned_flat, pinned_phrase, pinned_vtln = read_pins(
+        ("PINNED_ATOM", "PINNED_FLAT", "PINNED_PHRASE", "PINNED_VTLN"))
+    _, _, num_q = load_corpus()
+    dirs = atom_dirs(os.path.join(FIXTURES, "questions"))
+    ids = fixture_ids()
+
+    def atom_config(string):
+        cfg = convert_legacy_string(string, num_q)
+        cfg.input_names = ("questions",)
+        cfg.output_names = ("pred_atoms",)
+        return cfg
+
+    scores = {}
+    t0 = time.perf_counter()
+    hp = atom_hparams(AtomModelTrainer, device, workdir, "pin_atoms", 10,
+                      num_q, best=True)
+    trainer = AtomModelTrainer(hp, ids, **dirs)
+    trainer.init(hp, model_config=atom_config("RNNDYN-1_RELU_64-1_FC_5"))
+    from_jax_draw(trainer)
+    trainer.train(hp)
+    scores["atom"] = dict(zip(("f0_rmse", "vde"), map(
+        float, trainer.benchmark(hp, trainer.id_list_train))))
+    for key, pinned in pinned_atom.items():
+        check_pinned("atom " + key, scores["atom"][key], pinned)
+
+    atom_hp = atom_hparams(AtomVUVDistPosModelTrainer, device, workdir,
+                           "atoms", 3, num_q)
+    atom = AtomVUVDistPosModelTrainer(atom_hp, ids, **dirs)
+    atom.init(atom_hp, model_config=atom_config("RNNDYN-1_RELU_32-1_FC_7"))
+    from_jax_draw(atom)
+    flat_hp = atom_hparams(AtomNeuralFilterModelTrainer, device, workdir,
+                           "flat", 3, num_q)
+    flat = AtomNeuralFilterModelTrainer(flat_hp, ids, **dirs)
+    flat.init_atom(flat_hp, atom)
+    flat.init(flat_hp)
+    from_jax_draw(flat)
+    phrase_hp = atom_hparams(PhraseAtomNeuralFilterModelTrainer, device,
+                             workdir, "phrase", 3, num_q)
+    phrase_hp.add_hparams(phrase_bias_init=5.2)
+    phrase = PhraseAtomNeuralFilterModelTrainer(phrase_hp, ids, **dirs)
+    phrase.init_flat(phrase_hp, flat)
+    phrase.init(phrase_hp)
+    from_jax_draw(phrase)
+    phrase.train_atom(atom_hp)
+    phrase.train_flat(flat_hp)
+    phrase.train(phrase_hp)
+    for name, trainer, hp, pins in (("flat", flat, flat_hp, pinned_flat),
+                                    ("phrase", phrase, phrase_hp,
+                                     pinned_phrase)):
+        scores[name] = dict(zip(("f0_rmse", "vde"), map(
+            float, trainer.benchmark(hp, trainer.id_list_train))))
+        for key, pinned in pins.items():
+            check_pinned("{} {}".format(name, key), scores[name][key], pinned)
+
+    trainer, hp = vtln_trainer(torch, device, workdir, "pin_vtln",
+                               "RNNDYN-1_RELU_64-1_FC_67", num_q,
+                               os.path.join(FIXTURES, "questions"), 8,
+                               5e-4, True)
+    from_jax_draw(trainer)
+    trainer.train(hp)
+    scores["vtln"] = dict(zip(("mcd", "f0_rmse", "vde", "bap"), map(
+        float, trainer.benchmark(hp, trainer.id_list_train))))
+    for key, pinned in pinned_vtln.items():
+        check_pinned("vtln " + key, scores["vtln"][key], pinned)
+    seconds = time.perf_counter() - t0
+    log("  pins [{}]: {} ({:.1f} s)".format(card, json.dumps(scores),
+                                            seconds))
+    torch.cuda.empty_cache()
+    return dict(scores=scores, seconds=seconds)
+
+
+def enc_dec_small_models(torch, device, card, workdir):
+    """(e) EncDecMonophoneModelTrainer at its defaults (encoder 256-256,
+    two frames a decoder step, fixed attention) a few epochs, then
+    free-running, card against CPU; ClassificationTrainer and a
+    WindowingWrapper, small."""
+    from idiaptts_torch.models.rnn_dyn import convert_legacy_string
+    from idiaptts_torch.models.wrappers import WindowingWrapper
+    from idiaptts_torch.train.enc_dec_trainer import \
+        EncDecMonophoneModelTrainer
+    hp = EncDecMonophoneModelTrainer.create_hparams()
+    hp.device = str(device)
+    hp.num_coded_sps = NUM_SPS
+    hp.out_dir = workdir
+    hp.model_name = "encdec"
+    hp.epochs = ENC_DEC_EPOCHS
+    hp.batch_size_train = 3
+    hp.batch_size_val = 6
+    hp.learning_rate = 1e-3
+    hp.seed = 1
+    hp.test_set_perc = 0.0
+    hp.val_set_perc = 0.25
+    hp.label_type = "full_state_align"
+    labels = os.path.join(FIXTURES, "labels")
+    trainer = EncDecMonophoneModelTrainer(
+        hp, fixture_ids(),
+        dir_phoneme_labels=os.path.join(labels, "label_state_align"),
+        dir_durations=os.path.join(FIXTURES, "dur"),
+        dir_world_features=os.path.join(FIXTURES, "WORLD"),
+        file_symbol_dict=os.path.join(labels, "mono_phone.list"))
+    trainer.init(hp)
+    cfg = trainer.model_handler.model_config
+    (val, loss), _ = counted(torch, lambda: trainer.train(hp))
+    log("  enc-dec ({} -> {}, encoder {}, decoder {}, {} frames a step): "
+        "train loss {} | validation (free-running) {}".format(
+            cfg.in_dim, cfg.out_dim, cfg.encoder_units, cfg.decoder_dim,
+            cfg.n_frames_per_step, ["{:.4f}".format(v) for v in loss],
+            ["{:.4f}".format(v) for v in val]))
+    if not (np.all(np.isfinite(loss)) and loss[-1] < loss[0]
+            and np.all(np.isfinite(val))):
+        fail("enc-dec training loss did not fall: {}".format(loss))
+    ms, batch = step_ms(torch, trainer)
+    handler = trainer.model_handler
+    split = step_split(torch, trainer, batch, ms, "enc-dec train B={} T={}"
+                       .format(batch["acoustic_features"].shape[0],
+                               batch["acoustic_features"].shape[1]), card)
+    names = ("acoustic_features", "phonemes", "attention_matrix")
+    data, lengths = one_utterance(trainer, names)
+    model = handler.model
+    errs = {mode: model_against_cpu(
+        torch, model, data, lengths, "pred_acoustic_features", ENC_DEC_TOL,
+        "enc-dec {}, T={}".format(mode, int(lengths[0])),
+        training=mode == "teacher-forced")
+        for mode in ("teacher-forced", "free-running")}
+    (_, fr_wall) = _timed(torch, lambda: model(
+        {k: v.to(device) for k, v in data.items()}, training=False))
+    log("  enc-dec free-running forward of {} frames: {:.3f} s [{}]".format(
+        int(lengths[0]), fr_wall, card))
+    out = dict(train_loss=loss, val_loss=val, step_ms=ms, split=split,
+               cpu_rel=errs,
+               free_running_s=fr_wall)
+    del trainer, handler, model
+    torch.cuda.empty_cache()
+    out["attention_decoder"] = attention_decoder_step(torch, device, card)
+    out["classification"] = classification_small(torch, device, workdir)
+    # A WindowingWrapper around a small BiLSTM model, card against CPU.
+    inner = convert_legacy_string("RNNDYN-1_RELU_32-1_BiLSTM_32-1_FC_4", 8)
+    inner.input_names = ("x",)
+    inner.output_names = ("inner",)
+    wcfg = WindowingWrapper.Config(wrapped_model_config=inner,
+                                   window_size=64, window_step=48,
+                                   input_names=("x",), output_names=("y",))
+    wrapper = wcfg.create_model(torch.Generator().manual_seed(0)).to(device)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 300, 8, generator=gen)
+    out["windowing_cpu_rel"] = model_against_cpu(
+        torch, wrapper, {"x": x}, torch.tensor([300, 211]), "y", ATOM_TOL,
+        "WindowingWrapper, T=300")
+    return out
+
+
+def attention_decoder_step(torch, device, card):
+    """The dot-product attention decoder (the step loop over chunks with
+    the attention inside it) at the enc-dec defaults' widths: one
+    teacher-forced forward and backward timed, with the device's idle
+    share, and the forward held against the CPU."""
+    from idiaptts_torch.models.enc_dec import AttentionDecoder
+    cfg = AttentionDecoder.Config(
+        attention_type="dot", input_names=("memory",),
+        teacher_forcing_input_names=("target",), prenet_dims=(128,),
+        lstm_dims=(512,), projections=(("pred_frames", 67, (), True),),
+        n_frames_per_step=2, attention_dim=128, memory_dim=256)
+    model = cfg.create_model(torch.Generator().manual_seed(0)).to(device)
+    gen = torch.Generator().manual_seed(1)
+    data = {"memory": torch.randn(3, 60, 256, generator=gen),
+            "target": torch.randn(3, 512, 67, generator=gen)}
+    lengths = torch.tensor([60, 51, 40])
+    on_card = {k: v.to(device) for k, v in data.items()}
+
+    def step():
+        out = model(on_card, lengths=lengths.to(device), training=True)
+        out["pred_frames"].square().mean().backward()
+    ms = cuda_ms(torch, step, 2)
+    kernels = profile_step(torch, step)
+    busy = sum(kernels.values())
+    log("  dot-attention decoder B=3 T=512 (256 chunks), forward and "
+        "backward: {:.1f} ms, device busy {:.1f} ms (idle {:.1%}) [{}]"
+        .format(ms, busy, 1 - busy / ms, card))
+    err = model_against_cpu(torch, model, data, lengths, "pred_frames",
+                            ENC_DEC_TOL, "dot-attention decoder, T=512")
+    return dict(ms=ms, busy_ms=busy, idle=1 - busy / ms, cpu_rel=err)
+
+
+def classification_small(torch, device, workdir):
+    """ClassificationTrainer on the fixture questions with a class id an
+    utterance: the loss falls, the confusion matrix counts every frame."""
+    from idiaptts_torch.data.questions import QuestionLabelGen
+    from idiaptts_torch.data.reader import DataReader
+    from idiaptts_torch.models.rnn_dyn import convert_legacy_string
+    from idiaptts_torch.train.classification import ClassificationTrainer
+
+    class TiledClass(DataReader):
+        class Config(DataReader.Config):
+            def create_reader(self):
+                return TiledClass(self)
+
+        def load(self, id_name):
+            return np.full((4000, 1), int(id_name[-1]) % 2, np.float32)
+
+    _, _, num_q = load_corpus()
+    hp = ClassificationTrainer.create_hparams()
+    hp.device = str(device)
+    hp.set_hparam("num_classes", 2)
+    hp.out_dir = workdir
+    hp.model_name = "clf"
+    hp.epochs = 3
+    hp.batch_size_train = 3
+    hp.learning_rate = 0.002
+    hp.seed = 1
+    hp.test_set_perc = 0.0
+    hp.val_set_perc = 0.25
+    trainer = ClassificationTrainer(hp, fixture_ids())
+    readers = [QuestionLabelGen.Config(
+                   name="questions",
+                   directory=os.path.join(FIXTURES, "questions"),
+                   num_questions=num_q, match_length=("class_target",)),
+               TiledClass.Config(name="class_target",
+                                 match_length=("questions",))]
+    cfg = convert_legacy_string("RNNDYN-2_RELU_32-1_FC_2", num_q)
+    cfg.input_names = ("questions",)
+    cfg.output_names = ("pred_class",)
+    trainer.init(hp, model_config=cfg, data_reader_configs=readers)
+    _, loss = trainer.train(hp)
+    accuracy, confusion = trainer.benchmark(hp, trainer.id_list_train)
+    log("  classification: train loss {} | unweighted accuracy {:.3f}, "
+        "confusion {}".format(["{:.4f}".format(v) for v in loss], accuracy,
+                              confusion.tolist()))
+    if not (loss[-1] < loss[0] and confusion.sum() > 0):
+        fail("classification training: {} / {}".format(loss, confusion))
+    return dict(train_loss=loss, accuracy=float(accuracy),
+                confusion=confusion.tolist())
+
+
+def remaining_models(torch, device, card, workdir):
+    """Phase 13: every path of the remaining models and trainers, each
+    with the launch counters reset just before and read just after."""
+    t0 = time.perf_counter()
+    out = {}
+    log("  (a) WaveNet vocoder training")
+    out["wavenet"] = wavenet_training(torch, device, card, workdir)
+    log("  (b) the atom family at full width")
+    out["atoms"] = atom_family(torch, device, card, workdir)
+    log("  (c) VTLN at full width")
+    out["vtln"] = vtln_full(torch, device, card, workdir)
+    log("  (d) the intonation and VTLN quality pins from the JAX draw")
+    out["pins"] = intonation_pins(torch, device, card, workdir)
+    log("  (e) the encoder-decoder, classification, windowing")
+    out["enc_dec"] = enc_dec_small_models(torch, device, card, workdir)
+    out["seconds"] = time.perf_counter() - t0
+    log("  phase 13 took {:.1f} s".format(out["seconds"]))
+    return out
+
+
 def require_launches(launches, names, path):
     """Every kernel of a path must have launched during its run."""
     missing = [k for k in names if launches.get(k, 0) < 1]
@@ -3420,6 +4120,10 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
     rest = remaining_layers(torch, device, card, workdir)
     torch.cuda.empty_cache()
     extraction = feature_extraction(torch, device, card, workdir)
+    torch.cuda.empty_cache()
+    log("== phase 13: the remaining models and trainers on {}".format(
+        device))
+    remaining = remaining_models(torch, device, card, workdir)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -3451,6 +4155,18 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
                    "extract_train": extraction["voice"]["train_launches"][
                        name],
                    "extract_synth": extraction["voice"]["synth_launches"][
+                       name],
+                   "wavenet_train": remaining["wavenet"]["train_launches"][
+                       name],
+                   "wavenet_generate": remaining["wavenet"]["gen_launches"][
+                       name],
+                   **{"{}_train".format(k): remaining["atoms"][k][
+                       "train_launches"][name]
+                      for k in ("atom", "flat", "phrase")},
+                   "atom_benchmark": remaining["atoms"]["atom"][
+                       "bench_launches"][name],
+                   "vtln_train": remaining["vtln"]["train_launches"][name],
+                   "vtln_benchmark": remaining["vtln"]["bench_launches"][
                        name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
@@ -3487,6 +4203,20 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
                              "audible": tfd["acoustic_pin"]["audible"]}
         if name == "bilstm_recurrence":
             entry["narrow"] = kres[name]["narrow"]
+        if name == "wavenet_sampler":
+            entry["wavenet_training"] = {k: remaining["wavenet"][k] for k in (
+                "train_loss", "val_loss", "step", "gen", "cpu_rel")}
+        if name == "bilstm_bwd":
+            entry["remaining_models"] = {
+                "atoms": {k: {f: v[f] for f in ("train_loss", "scores",
+                                               "step_ms", "cpu_rel")
+                              + (("iir_ms",) if "iir_ms" in v else ())}
+                          for k, v in remaining["atoms"].items()},
+                "vtln": {k: remaining["vtln"][k] for k in (
+                    "train_loss", "scores", "sweep", "step_ms", "cpu_rel")},
+                "pins": remaining["pins"],
+                "enc_dec": {k: v for k, v in remaining["enc_dec"].items()},
+                "phase13_s": remaining["seconds"]}
         if name == "banded_solve":
             entry["lanewise"] = first["lanewise"]
             entry["long_bucket"] = kres[name]["T={},B={}".format(
@@ -3507,7 +4237,7 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
         for message in FAILURES:
             log("  ", message)
         return 1
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels}, default=float))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

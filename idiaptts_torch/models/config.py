@@ -5,9 +5,9 @@ Configs are plain picklable objects serialised as JSON into checkpoints,
 with a ``module:QualName`` class marker per object.
 
 A config JSON written by the JAX package names ``idiaptts_tpu.models``
-classes.  :func:`_decode` maps those onto the port's classes for the
-layer types the port has (:data:`_PORTED`), and raises
-``NotImplementedError`` for the others.
+classes.  :func:`_decode` maps each of its model config classes onto the
+port's class of the same module and name (:data:`_PORTED`), and raises
+``NotImplementedError`` for any other class path of that package.
 """
 
 import importlib
@@ -67,34 +67,39 @@ class ModelConfig:
 
 
 # JAX-package class paths the port can build: (module, qualname) ->
-# (port module, port qualname).
-_PORTED = {
-    ("idiaptts_tpu.models.config", "ModelConfig"):
-        ("idiaptts_torch.models.config", "ModelConfig"),
-    ("idiaptts_tpu.models.rnn_dyn", "RNNDyn.Config"):
-        ("idiaptts_torch.models.rnn_dyn", "RNNDyn.Config"),
-    ("idiaptts_tpu.models.rnn_dyn", "Config"):
-        ("idiaptts_torch.models.rnn_dyn", "RNNDyn.Config"),
-    ("idiaptts_tpu.models.rnn_dyn", "LayerConfig"):
-        ("idiaptts_torch.models.rnn_dyn", "LayerConfig"),
-    ("idiaptts_tpu.models.rnn_dyn", "EmbeddingConfig"):
-        ("idiaptts_torch.models.rnn_dyn", "EmbeddingConfig"),
-    ("idiaptts_tpu.models.wavenet", "WaveNetWrapper.Config"):
-        ("idiaptts_torch.models.wavenet", "WaveNetWrapper.Config"),
+# (port module, port qualname).  Every model config class of the JAX
+# package has its counterpart under the same module and class name.
+_PORTED_CLASSES = {
+    "config": ("ModelConfig",),
+    "rnn_dyn": ("RNNDyn.Config", "LayerConfig", "EmbeddingConfig"),
+    "wavenet": ("WaveNetWrapper.Config",),
+    "named": ("NamedForwardWrapper.Config", "NamedForwardSplitter.Config",
+              "NamedForwardCombiner.Config", "Sequential.Config"),
+    "intonation": ("NeuralFilters.Config", "PhraseNeuralFilters.Config"),
+    "vtln": ("AllPassWarpLayer.Config",),
+    "wrappers": ("WindowingWrapper.Config",),
+    "enc_dec": ("AttentionDecoder.Config", "EncDecGraph.ModuleConfig",
+                "EncDecGraph.Config", "EncDecDyn.Config"),
 }
+_PORTED = {("idiaptts_tpu.models." + module, qualname):
+           ("idiaptts_torch.models." + module, qualname)
+           for module, names in _PORTED_CLASSES.items() for qualname in names}
+# rnn_dyn's module-level alias of RNNDyn.Config.
+_PORTED[("idiaptts_tpu.models.rnn_dyn", "Config")] = \
+    ("idiaptts_torch.models.rnn_dyn", "RNNDyn.Config")
 
 
 def _port_class_path(module_name, qualname):
-    """A JAX-package class path -> the port's, or NotImplementedError."""
+    """A JAX-package class path -> the port's, or NotImplementedError
+    for a class that is no model config of the JAX package."""
     if module_name.split(".")[0] != "idiaptts_tpu":
         return module_name, qualname
     key = (module_name, qualname)
     if key not in _PORTED:
         raise NotImplementedError(
-            "config class {}:{} has no counterpart in idiaptts_torch yet; "
-            "ROADMAP.md queue 1 item 7 ports the other model types "
-            "(models/enc_dec.py, intonation.py, vtln.py, wrappers.py and "
-            "the rest of named.py)".format(module_name, qualname))
+            "Unknown model config class {}:{}: no model config of "
+            "idiaptts_tpu by that name has a counterpart in "
+            "idiaptts_torch".format(module_name, qualname))
     return _PORTED[key]
 
 

@@ -1,5 +1,5 @@
-"""Weight conversion between the JAX package's models (the rnn_dyn
-acoustic model and the WaveNet vocoder) and the port's, both ways.
+"""Weight conversion between the JAX package's models and the port's,
+both ways.
 
 The JAX model's flax variables, given as nested dicts of numpy arrays,
 become the port's state dict (:func:`flax_to_state_dict`), and back
@@ -10,9 +10,9 @@ flax tree, so the conversion is a flattening with three adjustments:
 - the ``batch_stats`` collection (flax BatchNorm's running ``mean`` and
   ``var``) becomes the port's buffers of the same names, merged into the
   state dict beside the parameters;
-- the JAX ``NamedForwardWrapper`` wraps its core in a ``_CallAdapter``
-  (``wrapped/inner/...``), which the port does not need
-  (``wrapped....``).
+- the JAX ``NamedForwardWrapper`` of an rnn_dyn model wraps its core in
+  a ``_CallAdapter`` (``.../wrapped/inner/...``), which the port does not
+  need (``....wrapped....``), wherever the wrapper sits in the tree.
 
 Covered leaves, all in flax's layouts, so no leaf is transposed: the
 Dense ``kernel (in, out)`` and ``bias (out,)`` of ``g{i}_Linear_{j}``,
@@ -27,6 +27,18 @@ tables of ``emb_{k}`` and ``g{i}_Embedding``; WaveNet's
 ``wavenet/input_embed/embedding (out, R)``, ``block_{i}/dilated/kernel
 (2, R, G)`` and the ``cond``, ``skip``, ``res``, ``post1`` and ``post2``
 Dense ``kernel (in, out)`` and ``bias`` (``wavenet.py:26-88``).
+
+The other model types name their parameters after the flax tree as
+well: the intonation filters' ``pole_logit`` and ``phase`` and the
+phrase model's ``phrase_bias`` (``intonation.py``), the atom model
+under ``atom_model`` and ``neural_filters``; the VTLN layer's
+``all_pass_warp/alpha_layer_<i>`` Dense; ``Sequential``'s and
+``EncDecGraph``'s ``modules_list_<i>`` scopes; the encoder-decoder's
+``encoder_<i>`` Dense, and its decoder step (``decoder`` or ``step``):
+``prenet``, the ``OptimizedLSTMCell`` kernels ``ii``/``if``/``ig``/``io``
+(no bias) and ``hi``/``hf``/``hg``/``ho`` (with bias), ``proj``,
+``gate``, ``query``, ``key`` and the named projections
+(``enc_dec.py``); ``WindowingWrapper``'s ``wrapped``.
 """
 
 from collections.abc import Mapping
@@ -50,11 +62,21 @@ def flatten_flax(tree, prefix=()):
     return flat
 
 
+def _drop_adapter(path):
+    """The flax path without the ``inner`` scope of each ``wrapped``
+    adapter."""
+    out = []
+    for name in path:
+        if name == "inner" and out and out[-1] == "wrapped":
+            continue
+        out.append(name)
+    return tuple(out)
+
+
 def _state_names(tree):
     state = {}
     for path, leaf in flatten_flax(tree).items():
-        if len(path) >= 2 and path[0] == "wrapped" and path[1] == "inner":
-            path = path[:1] + path[2:]
+        path = _drop_adapter(path)
         state[".".join(path)] = torch.from_numpy(
             np.array(leaf, dtype=np.float32))
     return state
@@ -86,8 +108,10 @@ def state_dict_to_flax(state_dict):
     variables = {"params": {}}
     for name, value in state_dict.items():
         path = name.split(".")
-        if path[0] == "wrapped":
-            path = ["wrapped", "inner"] + path[1:]
+        if "wrapped" in path:
+            # The adapter scope follows the innermost wrapper.
+            cut = len(path) - path[::-1].index("wrapped")
+            path = path[:cut] + ["inner"] + path[cut:]
         node = variables.setdefault(
             "batch_stats" if path[-1] in BATCH_STATS else "params", {})
         for key in path[:-1]:

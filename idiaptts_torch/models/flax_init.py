@@ -21,7 +21,8 @@ The uniform bits are JAX's exactly; ``erf``, ``erfinv`` and the QR are
 numpy's and scipy's in float64, rounded to float32, so a weight can sit
 an ulp or so from JAX's.  :func:`rnn_dyn_params` gives the flax tree that
 ``models/convert.py`` loads into the port's model, for every layer type
-but Custom.
+but Custom; :func:`model_params` gives it for the composite models of
+the intonation and VTLN pins too.
 """
 
 import hashlib
@@ -199,12 +200,14 @@ def _recurrent(root, path, layer, in_dim):
 _SCOPE_PREFIX = ("wrapped", "inner")
 
 
-def rnn_dyn_params(config, seed=1234):
+def rnn_dyn_params(config, seed=1234, scope=()):
     """The flax variables that the JAX package's
     ``ModularModelHandler.init_params`` draws for an rnn_dyn model
     ``config`` with ``seed``: ``{"params": {"wrapped": {"inner": {...}}}}``
     in numpy float32, with ``"batch_stats"`` (BatchNorm's running mean 0
     and variance 1) beside it when the model has BatchNorm groups.
+    ``scope``: the path of the model inside a composite model (the
+    returned tree starts there too).
 
     Every layer type draws as flax draws it: Dense, Conv and the VAE's
     Dense layers ``lecun_normal`` kernels and zero biases; LSTM ``Wx``
@@ -215,10 +218,11 @@ def rnn_dyn_params(config, seed=1234):
     BatchNorm scale 1 and bias 0.  Custom groups raise: their draw is
     their module's own."""
     root = prng_key(seed)
+    prefix = tuple(scope) + _SCOPE_PREFIX
     tree, stats = {}, {}
     num_groups = len(config.layer_configs)
     for emb in config.emb_configs:
-        path = _SCOPE_PREFIX + ("emb_" + str(emb.name),)
+        path = prefix + ("emb_" + str(emb.name),)
         tree[path[-1]] = {"embedding": _variance_scaling_normal(
             param_key(root, path, 1),
             (emb.num_embeddings, emb.embedding_dim))}
@@ -230,10 +234,10 @@ def rnn_dyn_params(config, seed=1234):
                       or g_idx - num_groups in e.affected_layer_group_indices)
         t = layer.layer_type
         name = "g{}_{}".format(g_idx, t)
-        path = _SCOPE_PREFIX + (name,)
+        path = prefix + (name,)
         if t in ("Linear", "FC", "LIN") or t.startswith("Conv1d"):
             for i in range(layer.num_layers):
-                scope = _SCOPE_PREFIX + ("{}_{}".format(name, i),)
+                scope = prefix + ("{}_{}".format(name, i),)
                 if t.startswith("Conv1d"):
                     k = np.atleast_1d(layer.kernel_size)[0]
                     leaves = {
@@ -270,7 +274,76 @@ def rnn_dyn_params(config, seed=1234):
         variables["batch_stats"] = stats
     for collection in variables:
         node = variables[collection]
-        for name in reversed(_SCOPE_PREFIX):
+        for name in reversed(prefix):
             node = {name: node}
         variables[collection] = node
     return variables
+
+
+def _merge(into, tree):
+    for key, value in tree.items():
+        if isinstance(value, dict) and isinstance(into.get(key), dict):
+            _merge(into[key], value)
+        else:
+            into[key] = value
+    return into
+
+
+def model_params(config, seed=1234, scope=()):
+    """The flax variables the JAX package draws for a model ``config``
+    with ``seed``, for every model type a quality pin trains: an rnn_dyn
+    model; ``NeuralFilters`` and ``PhraseNeuralFilters`` around one
+    (the filters' poles, phases and the phrase bias are their
+    deterministic initial values); ``Sequential`` of such modules and
+    ``AllPassWarpLayer`` (each alpha layer a ``lecun_normal`` Dense of
+    ``alpha_layer_in_dims[i]`` inputs and a zero bias).  Other types
+    raise."""
+    kind = type(config).__module__.rsplit(".", 1)[-1] + ":" \
+        + type(config).__qualname__
+    scope = tuple(scope)
+    if kind == "rnn_dyn:RNNDyn.Config":
+        return rnn_dyn_params(config, seed, scope)
+    if kind == "intonation:NeuralFilters.Config":
+        variables = model_params(config.atom_model_config, seed,
+                                 scope + ("atom_model",))
+        moduli = np.exp(-1.0 / (np.asarray(config.thetas) * 200)).astype(
+            np.float32)
+        filters = {"pole_logit": np.log(moduli / (1 - moduli))}
+        if config.complex_poles:
+            filters["phase"] = np.full(len(moduli), config.phase_init,
+                                       np.float32)
+        return _merge(variables, _nest(
+            scope + ("intonation_filters",), filters))
+    if kind == "intonation:PhraseNeuralFilters.Config":
+        variables = model_params(config.neural_filters_config, seed,
+                                 scope + ("neural_filters",))
+        modulus = np.float32(np.exp(-1.0 / (config.phrase_theta_init * 200)))
+        leaves = {"phrase_filter": {"pole_logit": np.log(
+                      np.array([modulus / (1 - modulus)], np.float32))},
+                  "phrase_bias": np.float32(config.phrase_bias_init)}
+        return _merge(variables, _nest(scope, leaves))
+    if kind == "named:Sequential.Config":
+        variables = {"params": {}}
+        for i, sub in enumerate(config.module_configs):
+            _merge(variables, model_params(
+                sub, seed, scope + ("modules_list_{}".format(i),)))
+        return variables
+    if kind == "vtln:AllPassWarpLayer.Config":
+        root = prng_key(seed)
+        dims = config.alpha_layer_in_dims \
+            or (1,) * len(config.alpha_input_names)
+        layers = {}
+        for i, dim in enumerate(dims):
+            name = "alpha_layer_{}".format(i)
+            layers[name] = _dense(root, scope + ("all_pass_warp", name),
+                                  int(dim), 1)
+        return _nest(scope + ("all_pass_warp",), layers)
+    raise NotImplementedError("no JAX initial draw for " + kind)
+
+
+def _nest(path, leaves):
+    """``{"params": {path[0]: {...: leaves}}}``."""
+    node = leaves
+    for name in reversed(path):
+        node = {name: node}
+    return {"params": node}

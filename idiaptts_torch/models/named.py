@@ -2,8 +2,15 @@
 wrapped module, write named outputs.
 
 Port of ``idiaptts_tpu/models/named.py`` (``select_lengths``,
-``merge_inputs``, ``write_outputs``, ``NamedForwardWrapper``) for
-batch-first (B, T, D) tensors with a (B,) ``lengths`` vector.
+``merge_inputs``, ``write_outputs``, ``NamedForwardWrapper``,
+``NamedForwardSplitter``, ``NamedForwardCombiner`` and ``Sequential``,
+with their configs) for batch-first (B, T, D) tensors with a (B,)
+``lengths`` vector.
+
+A composite config's ``create_model(generator)`` draws its modules'
+weights from the one generator in module order.  ``Sequential`` names
+its modules ``modules_list_<i>``, as flax names the members of a tuple
+attribute, so a JAX checkpoint's parameter paths carry over.
 """
 
 import torch
@@ -98,3 +105,94 @@ class NamedForwardWrapper(nn.Module):
         output = self.wrapped(inputs, lengths=lengths, training=training,
                               **kwargs)
         return write_outputs(data_dict, self.output_names, output)
+
+    class Config(ModelConfig):
+        def __init__(self, wrapped_model_config=None, **kwargs):
+            super().__init__(**kwargs)
+            self.wrapped_model_config = wrapped_model_config
+
+        def create_model(self, generator=None):
+            return NamedForwardWrapper(
+                self.wrapped_model_config.create_model(generator),
+                self.input_names, self.output_names, self.input_merge_type,
+                self.teacher_forcing_input_names)
+
+
+def default_generator(generator):
+    """The weight generator of a new model: ``generator``, or one seeded
+    with 0 (the port's default draw)."""
+    return torch.Generator().manual_seed(0) if generator is None \
+        else generator
+
+
+class NamedForwardSplitter(nn.Module):
+    """Splits one named tensor into several named parts along the
+    feature axis."""
+
+    def __init__(self, input_names, output_names, split_sizes):
+        super().__init__()
+        self.input_names = tuple(input_names)
+        self.output_names = tuple(output_names)
+        self.split_sizes = tuple(split_sizes)
+
+    def forward(self, data_dict, lengths=None, training=False, **kwargs):
+        value = merge_inputs(data_dict, self.input_names)
+        updated = dict(data_dict)
+        start = 0
+        for name, size in zip(self.output_names, self.split_sizes):
+            updated[name] = value[..., start:start + size]
+            start += size
+        return updated
+
+    class Config(ModelConfig):
+        def __init__(self, split_sizes=None, **kwargs):
+            super().__init__(**kwargs)
+            self.split_sizes = tuple(split_sizes)
+
+        def create_model(self, generator=None):
+            return NamedForwardSplitter(self.input_names, self.output_names,
+                                        self.split_sizes)
+
+
+class NamedForwardCombiner(nn.Module):
+    """Concatenates named tensors into one named output."""
+
+    def __init__(self, input_names, output_names):
+        super().__init__()
+        self.input_names = tuple(input_names)
+        self.output_names = tuple(output_names)
+
+    def forward(self, data_dict, lengths=None, training=False, **kwargs):
+        merged = merge_inputs(data_dict, self.input_names)
+        return write_outputs(data_dict, self.output_names, merged)
+
+    class Config(ModelConfig):
+        def create_model(self, generator=None):
+            return NamedForwardCombiner(self.input_names, self.output_names)
+
+
+class Sequential(nn.Module):
+    """Runs dict-protocol modules in order; each gets the model options
+    (``generator``, ``residuals_bf16``, ...) the caller passes."""
+
+    def __init__(self, modules_list):
+        super().__init__()
+        self.num_modules = len(modules_list)
+        for i, module in enumerate(modules_list):
+            self.add_module("modules_list_{}".format(i), module)
+
+    def forward(self, data_dict, lengths=None, training=False, **kwargs):
+        for i in range(self.num_modules):
+            data_dict = getattr(self, "modules_list_{}".format(i))(
+                data_dict, lengths=lengths, training=training, **kwargs)
+        return data_dict
+
+    class Config(ModelConfig):
+        def __init__(self, module_configs=None, **kwargs):
+            super().__init__(**kwargs)
+            self.module_configs = list(module_configs or [])
+
+        def create_model(self, generator=None):
+            generator = default_generator(generator)
+            return Sequential([c.create_model(generator)
+                               for c in self.module_configs])

@@ -3,7 +3,7 @@
 
 Maps a model-type identifier (``RNNDYN-...`` legacy strings, ``WaveNet``,
 ``EncDecDyn``) to a config builder, so hparams-driven recipes create
-models by name.  ``EncDecDyn`` has no port yet and raises.
+models by name.
 """
 
 from idiaptts_torch.models.rnn_dyn import IDENTIFIER as RNNDYN_IDENTIFIER
@@ -40,7 +40,8 @@ def _wavenet(in_dim, out_dim, hparams):
 
 @register("EncDecDyn")
 def _enc_dec(in_dim, out_dim, hparams):
-    raise NotImplementedError(
-        "EncDecDyn (idiaptts_tpu/models/enc_dec.py) is not ported yet; "
-        "ROADMAP.md queue 1 item 7 (the remaining models and trainers) "
-        "ports it")
+    from idiaptts_torch.models.enc_dec import EncDecDyn
+    return EncDecDyn.Config(input_names=("phonemes",),
+                            output_names=("pred_acoustic_features",
+                                          "pred_gate"),
+                            out_dim=out_dim, in_dim=in_dim)

@@ -186,7 +186,7 @@ class WaveNetWrapper(nn.Module):
     def reset_parameters(self, generator):
         self.wavenet.reset_parameters(generator)
 
-    def forward(self, data_dict, lengths=None, training=False):
+    def forward(self, data_dict, lengths=None, training=False, **kwargs):
         cfg = self.config
         if not cfg.input_names:
             raise ValueError("WaveNetWrapper needs conditioning inputs "

@@ -1,6 +1,7 @@
 """Host-side audio I/O: the port's copy of ``idiaptts_tpu/ops/audio_io.py``
 (WAV read and write through scipy, PCM conversion, pre-emphasis and its
-inverse, polyphase resampling).  numpy and scipy only."""
+inverse, polyphase resampling, energy-based silence trimming).  numpy
+and scipy only."""
 
 import os
 
@@ -65,3 +66,22 @@ def resample(raw, fs_in, fs_out):
     g = np.gcd(int(fs_in), int(fs_out))
     up, down = int(fs_out) // g, int(fs_in) // g
     return scipy.signal.resample_poly(raw, up, down).astype(np.float32)
+
+
+def trim_silence(raw, fs, silence_threshold_db=-50.0, chunk_ms=10,
+                 keep_ms=0):
+    """Energy-based leading and trailing silence removal over chunks of
+    ``chunk_ms``; returns (trimmed, start, end)."""
+    chunk = max(1, int(fs * chunk_ms / 1000))
+    n_chunks = len(raw) // chunk
+    if n_chunks == 0:
+        return raw, 0, len(raw)
+    frames = raw[:n_chunks * chunk].reshape(n_chunks, chunk)
+    db = 10.0 * np.log10(np.mean(np.square(frames), axis=1) + 1e-12)
+    loud = np.where(db > silence_threshold_db)[0]
+    if len(loud) == 0:
+        return raw[:0], 0, 0
+    keep = int(fs * keep_ms / 1000)
+    start = max(0, loud[0] * chunk - keep)
+    end = min(len(raw), (loud[-1] + 1) * chunk + keep)
+    return raw[start:end], start, end

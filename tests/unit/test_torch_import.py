@@ -68,6 +68,18 @@ MODULES = [
     "idiaptts_torch.data.audio_processing",
     "idiaptts_torch.data.lf0",
     "idiaptts_torch.data.alignment",
+    "idiaptts_torch.data.audio_gen",
+    "idiaptts_torch.data.atoms",
+    "idiaptts_torch.data.wcad",
+    "idiaptts_torch.models.intonation",
+    "idiaptts_torch.models.vtln",
+    "idiaptts_torch.models.wrappers",
+    "idiaptts_torch.models.enc_dec",
+    "idiaptts_torch.train.wavenet_trainer",
+    "idiaptts_torch.train.atom_trainers",
+    "idiaptts_torch.train.vtln_trainer",
+    "idiaptts_torch.train.enc_dec_trainer",
+    "idiaptts_torch.train.classification",
     "chip_smoke",
     "probe_bilstm_proj",
 ]

@@ -112,19 +112,31 @@ def test_registry_creates_configs_by_name():
 
     assert registry.create_model_config("Tiny", 3, 2).layer_configs[
         0].out_dim == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        registry.create_model_config("EncDecDyn", 12, 67)
+    # EncDecDyn builds the port's config, as the JAX registry builds its.
+    from idiaptts_torch.models.enc_dec import EncDecDyn
+    built = registry.create_model_config("EncDecDyn", 12, 67)
+    assert type(built) is EncDecDyn.Config
+    ref = jax_registry.create_model_config("EncDecDyn", 12, 67)
+    assert (built.input_names, built.output_names, built.out_dim) == \
+        (ref.input_names, ref.output_names, ref.out_dim)
+    assert built.create_model().encoder_0.kernel.shape == (12, 256)
     with pytest.raises(NotImplementedError, match="Unknown model type"):
         registry.create_model_config("NoSuchModel", 12)
 
 
 def test_unported_jax_config_class_raises():
-    """A JAX config JSON naming a model type without a port (enc-dec,
-    queue 1 item 7) is refused with the item's pointer."""
+    """A JAX config JSON of the enc-dec model builds the port's class
+    (every model config class of the JAX package has its counterpart);
+    a class path that is no model config of the JAX package is still
+    refused."""
+    from idiaptts_torch.models.enc_dec import EncDecDyn
     blob = json.dumps({"__class__":
-                       "idiaptts_tpu.models.enc_dec:EncDecDyn.Config"})
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ModelConfig.from_json(blob)
+                       "idiaptts_tpu.models.enc_dec:EncDecDyn.Config",
+                       "input_names": ["phonemes"], "out_dim": 5})
+    assert type(ModelConfig.from_json(blob)) is EncDecDyn.Config
+    with pytest.raises(NotImplementedError, match="Unknown model config"):
+        ModelConfig.from_json(json.dumps(
+            {"__class__": "idiaptts_tpu.models.enc_dec:NoSuchModel.Config"}))
 
 
 def test_masked_flip_matches_jax():

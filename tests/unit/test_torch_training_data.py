@@ -269,7 +269,7 @@ def test_hparams_defaults_match_jax_but_for_the_device_keys():
 
 def test_jax_config_json_loads_as_port_config():
     """A config.json written by the JAX package builds the port's model;
-    a model type the port does not have raises, naming the ROADMAP."""
+    a class path that is no model config of the JAX package raises."""
     cfg_j = jax_rnn.convert_legacy_string(
         "RNNDYN-1_RELU_16-1_BiLSTM_128-1_FC_5", 7)
     cfg_j.input_names = ("questions",)
@@ -285,7 +285,20 @@ def test_jax_config_json_loads_as_port_config():
     # The port's own JSON round-trips too.
     again = ModelConfig.from_json(cfg.to_json())
     assert type(again) is torch_rnn.RNNDyn.Config
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The VTLN layer's JAX config builds the port's class now; a class
+    # path that is no model config of the JAX package is refused.
+    from idiaptts_torch.models.vtln import AllPassWarpLayer
+    warp = ModelConfig.from_json(json.dumps(
+        {"__class__": "idiaptts_tpu.models.vtln:AllPassWarpLayer.Config",
+         "input_names": ["x"], "output_names": ["y"],
+         "warp_matrix_size": 4, "alpha_ranges": [0.2],
+         "alpha_input_names": ["spk"], "mean": None, "std_dev": None,
+         "grad_lambda": 200.0}))
+    assert type(warp) is AllPassWarpLayer.Config
+    out = warp.create_model()({"x": torch.zeros(2, 3, 4),
+                               "spk": torch.zeros(2, 1)})
+    assert out["y"].shape == (2, 3, 4) and out["alphas"].shape == (2, 3, 1)
+    with pytest.raises(NotImplementedError, match="Unknown model config"):
         ModelConfig.from_json(json.dumps(
-            {"__class__": "idiaptts_tpu.models.vtln:AllPassWarpLayer.Config",
+            {"__class__": "idiaptts_tpu.models.vtln:NoSuchLayer.Config",
              "input_names": ["x"]}))
