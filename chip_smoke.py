@@ -197,6 +197,23 @@ other error raises at once):
    ``WindowingWrapper`` around a small BiLSTM model card against CPU.
    Every model of (a)-(c) is also held against a CPU copy on one
    utterance (``ATOM_TOL``, ``WN_TOL``, ``ENC_DEC_TOL``).
+14. The rest of the port's surface.  (a) Data-parallel training of
+   ``MODEL_STRING`` (409 inputs, seed 1234, SGD) on a global batch of 8
+   variable-length utterances at T = 1024 (``DP_LENGTHS``): two ranks
+   sharing the card through gloo and a one-rank NCCL world, each spawned
+   by this script (``--dp-worker``), held to the one-process step on the
+   card (losses ``DP_LOSS_RTOL``, parameters ``DP_PARAM_RTOL`` /
+   ``DP_PARAM_ATOL``); K7's projection, K4 and K5 counted on each rank;
+   the step's ms for each.  (b) ``egs.ljspeech_demo`` stages 1-8 at full
+   width on the fixtures, one stage a call with the counters reset just
+   before and read just after (K7/K4/K5 in 4, K6/K3/K1 in 5, K6/K3/K2 in
+   6 and 7, K8 in 8); the benchmark scores; each served wav finite and
+   non-silent.  (c) ``egs.intonation_demo`` stages 1-6 at its default
+   epochs: finite benchmarks.  (d) ``FusedAcousticPipeline(devices=
+   [card, card])`` at B = 6 against one device: the PCM equal, the
+   padded tails silent.
+   (e) ``enhance`` of a fixture wav plus seeded noise, card against CPU
+   in float64 (``ENHANCE_TOL`` of the peak).
 
 The last three lines of standard output are the kernels JSON (every
 kernel with its bound, its plain version's and the library call's time),
@@ -447,6 +464,52 @@ ATOM_TOL = 2.0 ** -6
 ENC_DEC_TOL = 1e-3
 
 # Checks that failed; the script exits non-zero if any did.
+# Phase 14 (a): the data-parallel train step.  A global batch of 8
+# utterances of the full-width model's 409 questions, cropped to T = 1024
+# frames with variable lengths (per-rank mask sums differ, so only the
+# gathered loss equals the one-process step's), SGD for 3 steps; the
+# one-process step on the card is the reference at the CPU test's bounds
+# (tests/unit/test_torch_data_parallel.py): losses rtol 1e-4, parameters
+# rtol 1e-3 atol 1e-5.
+DP_MODEL = MODEL_STRING
+DP_LENGTHS = (1024, 917, 803, 1000, 611, 1024, 733, 950)
+DP_STEPS = 3
+DP_TIME_REPS = 3
+DP_LR = 0.01
+DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-4, 1e-3, 1e-5
+DP_KERNELS = ("bilstm_proj", "bilstm_recurrence_train", "bilstm_bwd")
+# The spawned worlds: (name, ranks, backend).  Two ranks share the card,
+# which NCCL refuses, so they use gloo; NCCL runs a world of one.
+DP_WORLDS = (("gloo_2", 2, "gloo"), ("nccl_1", 1, "nccl"))
+# Phase 14 (b): egs.ljspeech_demo at full width.  Stages 1-7 with the
+# recipe's default 8 epochs for the duration and acoustic models: after
+# fewer, the Interspeech'18 model's served audio stays below one PCM
+# step in some utterances (on the card after 4 epochs one of the six
+# was silent), so the served wavs could not be checked for sound.
+# Stage 8 (WaveNet) with RECIPE_EPOCHS_WAVENET.
+RECIPE_EPOCHS = 8
+RECIPE_EPOCHS_WAVENET = 2
+# A served wav passes as audible when its RMS level is at most this many
+# dB below the fixture recording of the same utterance (the recordings
+# sit at -16.7 to -27.3 dB RMS of full scale).
+RECIPE_LOUDNESS_DB = 40.0
+RECIPE_STAGE_KERNELS = {
+    4: ("bilstm_proj", "bilstm_recurrence_train", "bilstm_bwd"),
+    5: ("bilstm_proj", "bilstm_recurrence", "mlpg_oneshot"),
+    6: ("bilstm_proj", "bilstm_recurrence", "banded_solve"),
+    7: ("bilstm_proj", "bilstm_recurrence", "banded_solve"),
+    8: ("wavenet_sampler",),
+}
+# Phase 14 (d): the in-place weight change before a split call scales
+# every parameter by SPLIT_WEIGHT_SCALE behind a spin of the caller's
+# stream (torch.cuda._sleep: about 60 ms at the H100's 1.7 GHz), long
+# enough for unordered side streams to read the old weights.
+SPLIT_WEIGHT_SCALE = 0.75
+SPLIT_SPIN_CYCLES = 100_000_000
+# Phase 14 (e): enhance on the card against the CPU path, float64; bound
+# relative to the waveform's peak.
+ENHANCE_TOL = 1e-9
+
 FAILURES = []
 
 
@@ -927,10 +990,11 @@ def build_slice(torch, device, model_string=MODEL_STRING, d_in=None,
     def model_apply(m, questions_b, lengths_b):
         return m({"questions": questions_b}, lengths=lengths_b)["pred"]
 
-    def make_pipeline(dev):
+    def make_pipeline(dev, devices=None):
         return FusedAcousticPipeline(model_apply, variances,
                                      num_coded_sps=NUM_SPS, fs=FS,
-                                     bucket=256, device=dev)
+                                     bucket=256, device=dev,
+                                     devices=devices)
 
     return questions, model, make_pipeline
 
@@ -4001,6 +4065,426 @@ def remaining_models(torch, device, card, workdir):
     return out
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+def dp_handler(device, model_string):
+    """The model's handler (seed 1234) with SGD at DP_LR."""
+    from idiaptts_torch.hparams import ExtendedHParams
+    handler = train_handler(device, model_string)
+    hp = ExtendedHParams.create_hparams()
+    hp.learning_rate = DP_LR
+    hp.optimiser_type = "SGD"
+    handler.set_optimiser(hp)
+    return handler
+
+
+def dp_batch(torch, device, lengths):
+    """The seeded global batch: utterances of ``lengths`` frames, padded
+    to the longest, on the device."""
+    B, T = len(lengths), max(lengths)
+    lengths = np.asarray(lengths, np.int64)
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    batch = random_batch(torch, device, B, T)
+    batch["_seq_mask"] = torch.from_numpy(mask[..., None]).to(device)
+    batch["questions"] = batch["questions"] * batch["_seq_mask"]
+    batch["_lengths"] = {"questions": lengths.tolist()}
+    return batch
+
+
+def dp_steps(torch, handler, batch):
+    """DP_STEPS checked steps (counters reset just before, read just
+    after), the parameters after them, then the step's host-clock ms over
+    DP_TIME_REPS more (each step ends in a host read of its loss)."""
+    from idiaptts_torch.ops import dispatch
+
+    def sync():
+        if handler.device.type == "cuda":
+            torch.cuda.synchronize(handler.device)
+
+    dispatch.reset_counts()
+    losses = [handler.process_batches([batch])[0] for _ in range(DP_STEPS)]
+    sync()
+    launches = dispatch.counts()
+    state = {k: v.detach().cpu().clone()
+             for k, v in handler.model.state_dict().items()}
+    t0 = time.perf_counter()
+    for _ in range(DP_TIME_REPS):
+        handler.process_batches([batch])
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / DP_TIME_REPS
+    return losses, launches, state, ms
+
+
+def dp_worker(config):
+    """One rank of phase 14 (a), run as ``chip_smoke.py --dp-worker
+    CONFIG`` (JSON: rank, world, backend, url, out, device, model,
+    lengths)."""
+    import torch
+    rank, world = config["rank"], config["world"]
+    sys.path.insert(0, REPO)
+    from idiaptts_torch.ops import (cuda_lstm, cuda_mlpg,  # noqa: F401
+                                    cuda_wavenet, dispatch)
+    from idiaptts_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(config["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        dispatch.library()
+    mesh = mesh_lib.initialise_multihost(config["url"], world, rank,
+                                         backend=config["backend"],
+                                         device=device)
+    probe = torch.full((4,), float(rank + 1), device=device)
+    mesh_lib.all_reduce_flat([probe])
+    handler = dp_handler(device, config["model"])
+    handler.setup_mesh(world)
+    losses, launches, state, ms = dp_steps(
+        torch, handler, dp_batch(torch, device, config["lengths"]))
+    torch.save({"rank": rank, "mesh": repr(mesh),
+                "backend": config["backend"], "probe": probe.cpu(),
+                "losses": losses, "launches": launches, "ms": ms,
+                "state": state if rank == 0 else None}, config["out"])
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(world, backend, device, workdir):
+    """Run ``world`` ranks of ``dp_worker`` on ``device``; returns their
+    outputs.  Every process is waited for (or killed at the time limit)."""
+    import torch
+    url = "tcp://localhost:{}".format(_free_port())
+    env = dict(os.environ, PYTHONPATH=REPO)
+    outs = [os.path.join(workdir, "dp_{}_{}_{}.pt".format(backend, world, r))
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker",
+         json.dumps({"rank": r, "world": world, "backend": backend,
+                     "url": url, "out": outs[r], "device": str(device),
+                     "model": DP_MODEL, "lengths": list(DP_LENGTHS)})],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, text) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            raise RuntimeError("{} rank {} of {} exited {}:\n{}".format(
+                backend, r, world, proc.returncode, text[-3000:]))
+    return [torch.load(path, weights_only=False) for path in outs]
+
+
+def _dp_against(torch, name, ranks, ref_losses, ref_state):
+    """Losses and rank 0's parameters against the one-process step."""
+    losses = ranks[0]["losses"]
+    rel = float(np.max(np.abs(np.asarray(losses) - ref_losses)
+                       / np.abs(ref_losses)))
+    if not rel <= DP_LOSS_RTOL:
+        fail("{}: losses {} vs one process {} (relative {:.2e})".format(
+            name, losses, ref_losses, rel))
+    worst, worst_name = 0.0, None
+    for key, value in ref_state.items():
+        got = ranks[0]["state"][key]
+        excess = ((got - value).abs() - DP_PARAM_RTOL * value.abs()
+                  ).max().item()
+        if excess > worst:
+            worst, worst_name = excess, key
+        if not torch.allclose(got, value, rtol=DP_PARAM_RTOL,
+                              atol=DP_PARAM_ATOL):
+            fail("{}: parameter {} beyond rtol {} atol {} of the one-process"
+                 " step".format(name, key, DP_PARAM_RTOL, DP_PARAM_ATOL))
+    for rank in ranks:
+        require_launches(rank["launches"], DP_KERNELS,
+                         "{} rank {}".format(name, rank["rank"]))
+    if len({tuple(r["losses"]) for r in ranks}) != 1:
+        fail("{}: ranks report different losses".format(name))
+    return {"losses": losses, "loss_rel": rel,
+            "param_excess_over_rtol": worst, "param_worst": worst_name,
+            "launches_by_rank": [r["launches"] for r in ranks],
+            "step_ms_by_rank": [r["ms"] for r in ranks]}
+
+
+def data_parallel(torch, device, card, workdir):
+    """Phase 14 (a): the data-parallel step of ``MODEL_STRING`` on the
+    card, two gloo ranks sharing it and a one-rank NCCL world, against
+    the one-process step."""
+    handler = dp_handler(device, DP_MODEL)
+    ref_losses, launches, ref_state, ref_ms = dp_steps(
+        torch, handler, dp_batch(torch, device, DP_LENGTHS))
+    del handler
+    torch.cuda.empty_cache()
+    log("  one process: losses {} | {:.3f} ms a step | launches {} [{}]"
+        .format(["{:.6f}".format(x) for x in ref_losses], ref_ms,
+                json.dumps(launches), card))
+    out = {"one_process": {"losses": ref_losses, "step_ms": ref_ms,
+                           "launches": launches}}
+    for name, world, backend in DP_WORLDS:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(world, backend, device, workdir)
+        probe = ranks[0]["probe"].tolist()
+        want = float(sum(range(1, world + 1)))
+        if probe != [want] * 4:
+            fail("{}: all_reduce probe {} != {}".format(name, probe, want))
+        out[name] = _dp_against(torch, name, ranks, ref_losses, ref_state)
+        out[name]["spawn_s"] = time.perf_counter() - t0
+        log("  {} ({}): losses {} (relative {:.2e} of one process), "
+            "parameters' largest excess over rtol {:.2e} ({}) | {} ms a "
+            "step by rank | launches rank 0 {} | {:.1f} s with start-up [{}]"
+            .format(name, ranks[0]["mesh"],
+                    ["{:.6f}".format(x) for x in out[name]["losses"]],
+                    out[name]["loss_rel"],
+                    out[name]["param_excess_over_rtol"],
+                    out[name]["param_worst"],
+                    ["{:.3f}".format(x) for x in out[name][
+                        "step_ms_by_rank"]],
+                    json.dumps(ranks[0]["launches"]), out[name]["spawn_s"],
+                    card))
+    return out
+
+
+def _wav_peak(path):
+    from idiaptts_torch.ops.audio_io import get_raw
+    raw, _ = get_raw(path)
+    return raw, float(np.abs(raw).max()) if raw.size else 0.0
+
+
+def _rms_db(raw):
+    """Root-mean-square level in dB of full scale (-inf for silence)."""
+    with np.errstate(divide="ignore"):
+        return float(10.0 * np.log10(np.mean(raw.astype(np.float64) ** 2)))
+
+
+def ljspeech_recipe(torch, device, card, workdir):
+    """Phase 14 (b): ``egs.ljspeech_demo`` stages 1-8 on the card at full
+    width, one stage a call, counters reset just before and read just
+    after each."""
+    from idiaptts_torch.egs import ljspeech_demo
+    from idiaptts_torch.ops import dispatch
+    work = os.path.join(workdir, "ljspeech_demo")
+    out = {"launches": {}, "seconds": {}}
+    for stage in range(1, 9):
+        epochs = RECIPE_EPOCHS_WAVENET if stage == 8 else RECIPE_EPOCHS
+        dispatch.reset_counts()
+        t0 = time.perf_counter()
+        result = ljspeech_demo.main([
+            "--work_dir", work, "--fixtures", FIXTURES, "--device",
+            str(device),
+            "--stage", str(stage), "--stop_stage", str(stage),
+            "--epochs", str(epochs)])[stage]
+        torch.cuda.synchronize()
+        out["seconds"][stage] = time.perf_counter() - t0
+        out["launches"][stage] = launches = dispatch.counts()
+        log("  stage {}: {:.1f} s | launches {}".format(
+            stage, out["seconds"][stage], json.dumps(launches)))
+        require_launches(launches, RECIPE_STAGE_KERNELS.get(stage, ()),
+                         "ljspeech_demo stage {}".format(stage))
+        if stage in (3, 4, 8):
+            losses = result["train_loss"] + result["val_loss"]
+            out["losses_{}".format(stage)] = losses
+            if not np.all(np.isfinite(losses)):
+                fail("ljspeech_demo stage {}: non-finite loss {}".format(
+                    stage, losses))
+        if stage == 5:
+            out["scores"] = [float(x) for x in result]
+            log("  benchmark (MCD dB, F0-RMSE Hz, VDE, BAP dB): {} [{}]"
+                .format(out["scores"], card))
+            if not np.all(np.isfinite(out["scores"])):
+                fail("ljspeech_demo benchmark: non-finite scores")
+        if stage == 7:
+            out["serve_stats"] = result["stats"]
+            levels = {}
+            for id_name, path in result["paths"].items():
+                raw, peak = _wav_peak(path)
+                recorded, _ = _wav_peak(os.path.join(
+                    FIXTURES, "database", "wav", id_name + ".wav"))
+                levels[id_name] = {"peak": peak, "rms_db": _rms_db(raw),
+                                   "recorded_rms_db": _rms_db(recorded)}
+                gap = levels[id_name]["rms_db"] \
+                    - levels[id_name]["recorded_rms_db"]
+                # Audible: the served level within RECIPE_LOUDNESS_DB of
+                # the fixture recording's.
+                if not np.all(np.isfinite(raw)) \
+                        or not gap >= -RECIPE_LOUDNESS_DB:
+                    fail("served {}: not finite or too quiet ({:.2f} dB "
+                         "RMS, {:.2f} dB against the recording's {:.2f}; "
+                         "floor -{} dB)".format(
+                             id_name, levels[id_name]["rms_db"], gap,
+                             levels[id_name]["recorded_rms_db"],
+                             RECIPE_LOUDNESS_DB))
+            out["served_levels"] = levels
+            log("  served: {} | levels {}".format(
+                json.dumps(result["stats"]), json.dumps(levels)))
+        if stage == 8:
+            _, out["wavenet_peak"] = _wav_peak(
+                next(iter(result["paths"].values())))
+    return out
+
+
+def intonation_recipe(torch, device, card, workdir):
+    """Phase 14 (c): ``egs.intonation_demo`` stages 1-6 on the card, at
+    the recipe's default epochs."""
+    from idiaptts_torch.egs import intonation_demo
+    t0 = time.perf_counter()
+    results = intonation_demo.main([
+        "--work_dir", os.path.join(workdir, "intonation_demo"),
+        "--fixtures", FIXTURES, "--device", str(device)])
+    scores = {stage: [float(x) for x in results[stage]["scores"]]
+              for stage in (4, 5, 6)}
+    for stage, value in scores.items():
+        if not np.all(np.isfinite(value)):
+            fail("intonation_demo stage {}: non-finite benchmark {}"
+                 .format(stage, value))
+    seconds = time.perf_counter() - t0
+    log("  F0-RMSE Hz, VDE by stage: {} | {:.1f} s [{}]".format(
+        json.dumps(scores), seconds, card))
+    return {"scores": scores, "seconds": seconds}
+
+
+def split_serving(torch, device, card):
+    """Phase 14 (d): ``FusedAcousticPipeline(devices=[card, card])`` at
+    B = 6 against ``devices=None``, with a seeded F0 contour on the card:
+    the PCM equal sample for sample, the padded tails silent; K6's
+    projection, K3 and K2 launched by the split run.  Then the weights
+    are changed in place on the caller's stream behind a spin of the
+    card, and a split call follows with no synchronisation: its PCM must
+    equal the one-device run's on the changed weights, which holds only
+    if the side streams wait for the caller's queued work."""
+    from idiaptts_torch.ops import audio_io, dispatch
+    questions, model, make_pipeline = build_slice(torch, device)
+    plain = make_pipeline(device)
+    split = make_pipeline(device, devices=[device, device])
+    T = -(-max(len(q) for q in questions) // plain.bucket) * plain.bucket
+    f0 = torch.from_numpy(np.random.RandomState(14).uniform(
+        90.0, 220.0, (len(questions), T)).astype(np.float32)).to(device)
+    ref = plain(model, questions, f0_cont=f0, seed=5,
+                device_output=True).cpu().numpy()
+    dispatch.reset_counts()
+    got = split(model, questions, f0_cont=f0, seed=5, device_output=True)
+    torch.cuda.synchronize()
+    launches = dispatch.counts()
+    got = got.cpu().numpy()
+    require_launches(launches, SERVE_KERNELS, "batch-split serving")
+    pcm_equal = bool(np.array_equal(audio_io.float_to_pcm16(got),
+                                    audio_io.float_to_pcm16(ref)))
+    diff = float(np.abs(got - ref).max())
+    if not pcm_equal:
+        fail("batch-split serving: PCM differs from one device (largest "
+             "float difference {:.3e})".format(diff))
+    tails = []
+    for row, q in zip(got, questions):
+        body = row[:len(q) * plain.hop]
+        tail = row[len(q) * plain.hop + 400:]
+        tails.append(float(np.abs(tail).max() / np.abs(body).max())
+                     if tail.size else 0.0)
+    if not max(tails) < 1e-3:
+        fail("batch-split serving: padded tail not silent ({})".format(
+            max(tails)))
+    # Weights changed in place just before a split call.
+    unchanged = audio_io.float_to_pcm16(plain(
+        model, questions, seed=5, device_output=True).cpu().numpy())
+    with torch.no_grad():
+        originals = [p.detach().clone() for p in model.parameters()]
+        for p in model.parameters():
+            p.mul_(SPLIT_WEIGHT_SCALE)
+    changed = plain(model, questions, seed=5, device_output=True)
+    changed = audio_io.float_to_pcm16(changed.cpu().numpy())
+    if np.array_equal(changed, unchanged):
+        fail("batch-split serving: scaling the weights by {} left the PCM "
+             "as it was".format(SPLIT_WEIGHT_SCALE))
+    with torch.no_grad():
+        for p, o in zip(model.parameters(), originals):
+            p.copy_(o)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPLIT_SPIN_CYCLES)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(SPLIT_WEIGHT_SCALE)
+    after = split(model, questions, seed=5, device_output=True)
+    after = audio_io.float_to_pcm16(after.cpu().numpy())
+    ordered = bool(np.array_equal(after, changed))
+    if not ordered:
+        fail("batch-split serving: a split call right after an in-place "
+             "weight change returned other PCM than one device on the "
+             "changed weights ({} samples differ)".format(
+                 int((after != changed).sum())))
+    with torch.no_grad():
+        for p, o in zip(model.parameters(), originals):
+            p.copy_(o)
+    ms = cuda_ms(torch, lambda: split(model, questions, seed=5), 3)
+    ms_plain = cuda_ms(torch, lambda: plain(model, questions, seed=5), 3)
+    log("  B={} over 2 x {}: PCM equal {} (float difference {:.3e}), tail "
+        "/ peak {:.2e}, ordered after an in-place weight change {} | "
+        "{:.3f} ms split, {:.3f} ms one device | launches {} [{}]".format(
+            len(questions), device, pcm_equal, diff, max(tails), ordered,
+            ms, ms_plain, json.dumps(launches), card))
+    return {"pcm_equal": pcm_equal, "max_float_diff": diff,
+            "tail_over_peak": max(tails), "ordered_after_weight_change":
+            ordered, "ms": ms, "ms_one_device": ms_plain,
+            "launches": launches}
+
+
+def enhancement_check(torch, device, card):
+    """Phase 14 (e): ``enhance`` of one fixture wav plus seeded noise on
+    the card against the CPU path, both in float64."""
+    from idiaptts_torch.ops import audio_io, enhancement
+    raw, fs = audio_io.get_raw(os.path.join(FIXTURES, "database", "wav",
+                                            "gen-0001.wav"))
+    noisy = raw.astype(np.float64) \
+        + 0.01 * np.random.RandomState(0).randn(len(raw))
+    out = {}
+    for t60 in (None, 0.5):
+        cpu = enhancement._enhance(torch.as_tensor(noisy), fs, t60=t60)
+        x = torch.as_tensor(noisy, device=device)
+        card_out = enhancement._enhance(x, fs, t60=t60).cpu()
+        rel = ((card_out - cpu).abs().max() / cpu.abs().max()).item()
+        _check("enhance t60={}".format(t60), rel, ENHANCE_TOL,
+               "relative to the peak, float64")
+        ms = cuda_ms(torch, lambda: enhancement._enhance(x, fs, t60=t60), 3)
+        out[str(t60)] = {"rel": rel, "ms": ms,
+                         "xrt": len(raw) / fs / (ms / 1e3)}
+        log("  enhance t60={}: card vs CPU {:.2e} of the peak | {:.3f} ms, "
+            "{:.1f}x real time [{}]".format(t60, rel, ms,
+                                            out[str(t60)]["xrt"], card))
+    return out
+
+
+def port_surface(torch, device, card, workdir):
+    """Phase 14: data-parallel training, the two recipes, batch-split
+    serving and enhancement on the card."""
+    t0 = time.perf_counter()
+    out = {}
+    log("  (a) data-parallel training, {} at D_in={}, B={} T={} (lengths "
+        "{}), SGD lr {}".format(DP_MODEL, TRAIN_D_IN, len(DP_LENGTHS),
+                                max(DP_LENGTHS), DP_LENGTHS, DP_LR))
+    out["data_parallel"] = data_parallel(torch, device, card, workdir)
+    torch.cuda.empty_cache()
+    log("  (b) egs.ljspeech_demo stages 1-8 at full width")
+    out["ljspeech"] = ljspeech_recipe(torch, device, card, workdir)
+    torch.cuda.empty_cache()
+    log("  (c) egs.intonation_demo stages 1-6")
+    out["intonation"] = intonation_recipe(torch, device, card, workdir)
+    log("  (d) batch-split serving over two streams of the card")
+    out["split"] = split_serving(torch, device, card)
+    torch.cuda.empty_cache()
+    log("  (e) enhance, card against CPU")
+    out["enhance"] = enhancement_check(torch, device, card)
+    out["seconds"] = time.perf_counter() - t0
+    log("  phase 14 took {:.1f} s".format(out["seconds"]))
+    return out
+
+
 def require_launches(launches, names, path):
     """Every kernel of a path must have launched during its run."""
     missing = [k for k in names if launches.get(k, 0) < 1]
@@ -4012,6 +4496,8 @@ def require_launches(launches, names, path):
 def main():
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
+        return dp_worker(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -4124,6 +4610,11 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
     log("== phase 13: the remaining models and trainers on {}".format(
         device))
     remaining = remaining_models(torch, device, card, workdir)
+    torch.cuda.empty_cache()
+    log("== phase 14: data-parallel training, the recipes, batch-split "
+        "serving and enhancement on {}".format(device))
+    surface = port_surface(torch, device, card, workdir)
+    dp = surface["data_parallel"]
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -4167,7 +4658,17 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
                        "bench_launches"][name],
                    "vtln_train": remaining["vtln"]["train_launches"][name],
                    "vtln_benchmark": remaining["vtln"]["bench_launches"][
-                       name]}
+                       name],
+                   "dp_one_process": dp["one_process"]["launches"][name],
+                   **{"dp_gloo_rank{}".format(r): counts.get(name, 0)
+                      for r, counts in enumerate(
+                          dp["gloo_2"]["launches_by_rank"])},
+                   "dp_nccl_rank0": dp["nccl_1"]["launches_by_rank"][0].get(
+                       name, 0),
+                   **{"ljspeech_stage{}".format(n): counts.get(name, 0)
+                      for n, counts in surface["ljspeech"][
+                          "launches"].items()},
+                   "split_serve": surface["split"]["launches"][name]}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -4227,6 +4728,11 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
         if name == "bilstm_bwd":
             entry["narrow_training"] = {k: narrow[k] for k in (
                 "model", "B", "T", "losses", "step_ms", "frames_per_s")}
+            entry["data_parallel"] = dp
+        if name == "banded_solve":
+            entry["port_surface"] = {k: surface[k] for k in (
+                "split", "enhance", "intonation", "seconds")}
+            entry["ljspeech_demo"] = surface["ljspeech"]
         for k in ("layer_max_abs_err", "layer_ms", "layer_plain_ms",
                   "us_per_step"):
             if k in first:

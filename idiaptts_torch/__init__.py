@@ -14,7 +14,12 @@ Layer map (mirrors idiaptts_tpu):
                converter
   data/      — readers, datasets, normalisation, question and duration
                label generation (with the native question matcher)
-  train/     — model handler, trainers (acoustic, duration)
-  synth/     — the fused label -> waveform pipeline, the servers, the
-               built-in text front end and TTSModel (text -> wav)
+  train/     — model handler (one device or data-parallel), trainers
+  synth/     — the fused label -> waveform pipeline (one device, or a
+               batch split over several), the servers, the built-in
+               text front end and TTSModel (text -> wav)
+  parallel/  — data parallelism over torch.distributed
+  utils/     — figures, equality helpers, misc host helpers
+  egs/       — the LJSpeech and intonation recipes
+  assets/    — the lexicon and question files
 """

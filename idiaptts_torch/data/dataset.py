@@ -45,6 +45,20 @@ class DatareadersDataset:
         self._match_max_frames(output, id_name)
         return output, self
 
+    def get_input_dim(self, input_names):
+        """Summed feature width of ``input_names`` in the first sample
+        (a 1-D feature counts as one channel)."""
+        sample, _ = self[0]
+        return sum(1 if np.ndim(sample[name]) <= 1
+                   else np.asarray(sample[name]).shape[-1]
+                   for name in input_names)
+
+    def get_datareader_by_name(self, name):
+        for reader in self.datareaders:
+            if reader.name == name:
+                return reader
+        raise KeyError(name)
+
     def get_datareader_by_output_name(self, name):
         for reader in self.datareaders:
             if name in reader.output_names:

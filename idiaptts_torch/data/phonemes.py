@@ -308,3 +308,24 @@ class PhonemeDurationLabelGen(NpzDataReader, LabelGen):
             return label_dict, mean, std
         return mean, std
 
+
+def main(argv=None):
+    """CLI: 5-state phone durations of a corpus of labels."""
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Extract 5-state phone durations.")
+    parser.add_argument("-l", "--dir_labels", required=True)
+    parser.add_argument("-o", "--dir_out", required=True)
+    parser.add_argument("-i", "--file_id_list", default=None)
+    args = parser.parse_args(argv)
+    id_list = None
+    if args.file_id_list:
+        with open(args.file_id_list) as f:
+            id_list = [line.strip() for line in f if line.strip()]
+    PhonemeDurationLabelGen.gen_data(
+        args.dir_labels, dir_out=args.dir_out,
+        file_id_list=args.file_id_list or "", id_list=id_list)
+
+
+if __name__ == "__main__":
+    main()

@@ -452,3 +452,26 @@ class QuestionLabelGen(NpzDataReader, LabelGen):
             [[0], np.where(per_frame[1:] != per_frame[:-1])[0] + 1])
         return [(int(i), per_frame[i]) for i in changes]
 
+
+def main(argv=None):
+    """CLI: question labels of a corpus of HTS state-aligned labels."""
+    import argparse
+    parser = argparse.ArgumentParser(
+        description="Generate HTS question labels.")
+    parser.add_argument("-l", "--dir_labels", required=True)
+    parser.add_argument("-q", "--file_questions", required=True)
+    parser.add_argument("-o", "--dir_out", required=True)
+    parser.add_argument("-i", "--file_id_list", default=None)
+    args = parser.parse_args(argv)
+    id_list = None
+    if args.file_id_list:
+        with open(args.file_id_list) as f:
+            id_list = [line.strip() for line in f if line.strip()]
+    QuestionLabelGen.gen_data(args.dir_labels, args.file_questions,
+                              dir_out=args.dir_out,
+                              file_id_list=args.file_id_list or "",
+                              id_list=id_list)
+
+
+if __name__ == "__main__":
+    main()

@@ -142,6 +142,10 @@ class WorldFeatLabelGen(NpzDataReader, LabelGen):
     def dir_coded_sps(self):
         return self.sp_type + str(self.num_coded_sps)
 
+    @property
+    def load_flags(self):
+        return (self.load_sp, self.load_lf0, self.load_vuv, self.load_bap)
+
     def _stream_dims(self):
         factor = 3 if self.add_deltas else 1
         return (self.num_coded_sps * factor, factor, 1,

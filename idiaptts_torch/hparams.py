@@ -10,12 +10,15 @@ A flat typed key/value store where
 * ``verify()`` sanity-checks interdependent keys,
 * per-trainer ``create_hparams`` classmethods extend the default set.
 
-The default set is the JAX package's, with its mesh keys
-(``model_parallel``, ``use_shard_map``, ``mesh_shape``, ``data_axis``)
-replaced by ``device`` (``"cuda"``; raises without CUDA unless set to
-``"cpu"``) and ``bf16_residuals`` (the BiLSTM training residuals' type:
-by default bf16 above 32 batch rows, as the JAX handler chooses, and
-float32 otherwise; True or False overrides).
+The default set is the JAX package's plus ``device`` (``"cuda"``; raises
+without CUDA unless set to ``"cpu"``) and ``bf16_residuals`` (the BiLSTM
+training residuals' type: by default bf16 above 32 rows a rank, as the
+JAX handler chooses, and float32 otherwise; True or False overrides).
+Its mesh keys load with the JAX defaults: ``num_devices`` > 1 (or
+``distributed_run``) trains data-parallel over ``torch.distributed``,
+``data_axis`` names the data axis, ``model_parallel`` > 1 (tensor
+parallelism) raises ``NotImplementedError``, and ``use_shard_map`` and
+``mesh_shape`` are accepted and have no effect in the port.
 """
 
 import ast
@@ -23,6 +26,7 @@ import copy
 import json
 import logging
 
+logger = logging.getLogger(__name__)
 
 _SENTINEL = object()
 
@@ -54,6 +58,10 @@ class ExtendedHParams:
     def has_value(self, name):
         return name in self._values and self._values[name] is not None
 
+    # Tri-state switches: declared as the string "auto" but legitimately
+    # set to True/False.
+    _TRISTATE = frozenset({"use_shard_map"})
+
     def _set(self, name, value, declare=False):
         if not declare:
             expected = self._types.get(name)
@@ -64,6 +72,8 @@ class ExtendedHParams:
                     value = float(value)
                 elif expected is list and isinstance(value, tuple):
                     value = list(value)
+                elif name in self._TRISTATE and isinstance(value, bool):
+                    pass
                 else:
                     raise ValueError(
                         "Must pass %s for hparam '%s', got %s"
@@ -104,6 +114,42 @@ class ExtendedHParams:
         if name not in self._values:
             raise ValueError("Unknown hyper-parameter: %s" % name)
         self._set(name, value)
+
+    def get_value(self, attribute, default):
+        """``get`` under the reference's name: ``default`` also where the
+        key holds None."""
+        return self._values[attribute] \
+            if self.has_value(attribute) else default
+
+    def enable_backwards_compatibility(self):
+        """Fold legacy key spellings into their current homes:
+        ``learning_rate`` seeds ``optimiser_args['lr']``; with
+        ``load_from_checkpoint`` the first of ``checkpoint_epoch``,
+        ``checkpoint_step``, ``load_checkpoint_epoch`` and
+        ``load_checkpoint_step`` becomes ``epoch_to_load`` or
+        ``step_to_load``; ``epochs_per_checkpoint`` becomes
+        ``checkpoint_epoch_interval``."""
+        opt_args = self.get("optimiser_args")
+        if isinstance(opt_args, dict) and "lr" not in opt_args \
+                and self.has_value("learning_rate"):
+            opt_args["lr"] = self.get("learning_rate")
+        if self.get("load_from_checkpoint"):
+            for old, new in (("checkpoint_epoch", "epoch_to_load"),
+                             ("checkpoint_step", "step_to_load"),
+                             ("load_checkpoint_epoch", "epoch_to_load"),
+                             ("load_checkpoint_step", "step_to_load")):
+                if self.has_value(old):
+                    logger.warning("hparams.%s is deprecated; use %s.",
+                                   old, new)
+                    self.setattr_no_type_check(new, self.get(old))
+                    self.del_hparam(old)
+                    break
+        if self.has_value("epochs_per_checkpoint"):
+            logger.warning("hparams.epochs_per_checkpoint is the reference "
+                           "spelling; mapped to checkpoint_epoch_interval.")
+            self.set_hparam("checkpoint_epoch_interval",
+                            self.get("epochs_per_checkpoint"))
+            self.del_hparam("epochs_per_checkpoint")
 
     def values(self):
         return dict(self._values)
@@ -189,7 +235,6 @@ class ExtendedHParams:
 
     # -- verification ---------------------------------------------------
     def verify(self):
-        logger = logging.getLogger(__name__)
         known = set(self._values)
         for name in ("batch_size_train", "batch_size_val", "batch_size_test"):
             if name in known and self._values[name] is not None \
@@ -209,8 +254,7 @@ class ExtendedHParams:
     def create_hparams(hparams_string=None, verbose=False):
         """Default hyper-parameter set.
 
-        The JAX package's keys, with ``device`` and ``bf16_residuals`` in
-        place of its mesh keys.
+        The JAX package's keys plus ``device`` and ``bf16_residuals``.
         """
         hparams = ExtendedHParams()
         hparams.add_hparams(
@@ -231,7 +275,11 @@ class ExtendedHParams:
             model_config=None,
             # -- device --------------------------------------------------
             use_gpu=False,           # kept for API compat
-            num_devices=1,
+            num_devices=1,           # > 1: data-parallel ranks
+            model_parallel=1,        # > 1 (tensor parallel) raises
+            use_shard_map="auto",    # accepted; no effect in the port
+            mesh_shape=None,         # accepted; no effect in the port
+            data_axis="data",
             device="cuda",           # where the model trains and infers
             # BiLSTM training residuals in bf16: None follows the JAX
             # handler (bf16 above 32 batch rows), True/False override it.

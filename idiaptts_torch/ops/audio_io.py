@@ -1,7 +1,7 @@
 """Host-side audio I/O: the port's copy of ``idiaptts_tpu/ops/audio_io.py``
 (WAV read and write through scipy, PCM conversion, pre-emphasis and its
-inverse, polyphase resampling, energy-based silence trimming).  numpy
-and scipy only."""
+inverse, polyphase resampling, RMS loudness normalisation, the FIR
+high-pass, energy-based silence trimming).  numpy and scipy only."""
 
 import os
 
@@ -66,6 +66,21 @@ def resample(raw, fs_in, fs_out):
     g = np.gcd(int(fs_in), int(fs_out))
     up, down = int(fs_out) // g, int(fs_in) // g
     return scipy.signal.resample_poly(raw, up, down).astype(np.float32)
+
+
+def rms_normalise(raw, target_dbfs=-20.0):
+    """Scale to an RMS of ``target_dbfs`` dB full scale."""
+    rms = np.sqrt(np.mean(np.square(raw)) + 1e-12)
+    target = 10.0 ** (target_dbfs / 20.0)
+    return (raw * (target / rms)).astype(np.float32)
+
+
+def highpass_filter(raw, fs, cutoff=70.0, order=1001):
+    """Linear-phase FIR high-pass (an odd number of taps), applied
+    forward and backward."""
+    order = int(order) | 1
+    taps = scipy.signal.firwin(order, cutoff, fs=fs, pass_zero=False)
+    return scipy.signal.filtfilt(taps, [1.0], raw).astype(np.float32)
 
 
 def trim_silence(raw, fs, silence_threshold_db=-50.0, chunk_ms=10,

@@ -7,16 +7,15 @@ stress digits kept) with a rule-based English letter-to-sound fallback
 (ARPABET), syllabification with stress, phrase segmentation at major
 punctuation, and label emission in the framework's HTS-shaped label
 format, the format the committed question set
-(``idiaptts_tpu/assets/questions-en-arpabet_dnn.hed``, generated by
+(``idiaptts_torch/assets/questions-en-arpabet_dnn.hed``, generated by
 ``tools/make_question_file.py``) is written for; see
 ``BuiltinFrontEnd.text_to_full_labels`` for the field layout (quinphone
 + /A/../J/ blocks covering the numeric-context dimensions of the
 reference's questions-en-radio_dnn_416.hed CQS set).
 
 ``TTSModel.run_DM_AM`` uses this front end when no external
-``front_end_cmd`` is configured.  The bundled lexicon is read where it
-lies in the repository, ``idiaptts_tpu/assets/lexicon-en-us.dict``,
-by path (``DEFAULT_LEXICON``).
+``front_end_cmd`` is configured.  The bundled lexicon is the port's own
+copy, ``idiaptts_torch/assets/lexicon-en-us.dict`` (``DEFAULT_LEXICON``).
 """
 
 import os
@@ -623,9 +622,8 @@ def syllabify(phones_with_stress):
 # instead of rule LTS (the role Festival's lexicon plays for the
 # reference, scripts/tts_frontend/English/makeLabels.sh).
 DEFAULT_LEXICON = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))),
-    "idiaptts_tpu", "assets", "lexicon-en-us.dict")
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "assets", "lexicon-en-us.dict")
 
 
 class BuiltinFrontEnd:

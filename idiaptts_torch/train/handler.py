@@ -1,6 +1,5 @@
 """Model handler: the port's training and inference engine, the PyTorch
-counterpart of ``idiaptts_tpu/train/handler.py`` without its mesh and
-``shard_map`` parts.
+counterpart of ``idiaptts_tpu/train/handler.py``.
 
 One train step is: forward in training mode (dropout masks from the
 handler's generator; every BiLSTM layer through its training kernels),
@@ -25,8 +24,22 @@ forward updates them, inference reads them, checkpoints save them.
 
 Residual precision of the BiLSTM training kernels follows the JAX
 handler's rule by default (``residuals_bf16 = None``): bf16 residual
-streams when a batch has more than 32 rows, float32 otherwise.  True or
-False overrides the rule.
+streams when a rank's batch has more than 32 rows, float32 otherwise.
+True or False overrides the rule.
+
+Data parallelism (``setup_mesh``, the counterpart of the JAX handler's
+``shard_map`` step): every rank of a ``torch.distributed`` group holds
+the whole batch and the same parameters.  A batch whose leaves all
+divide by the world size is sharded on its leading dimension: each rank
+runs the forward on its rows (dropout from its own generator, seeded
+with the rank), the model's outputs are gathered over the ranks before
+the losses run, so masked means keep their global denominators, and the
+gradients are summed over the ranks, which makes them the global
+gradient; the chain above then runs on every rank alike.  BatchNorm's
+running averages become the mean of the ranks' updates.  A batch that
+does not divide runs whole on every rank, with rank 0's gradients and
+running averages copied to the others.  Tensor parallelism
+(``model_parallel > 1``) is not ported.
 
 Checkpoints keep the JAX handler's directory layout
 (``<dir>/<model_name>/<networks_dir>/config.json``, ``params_<suffix>``,
@@ -46,7 +59,9 @@ import numpy as np
 import torch
 
 from idiaptts_torch.models.config import ModelConfig
+from idiaptts_torch.models.rnn_dyn import _BatchNorm
 from idiaptts_torch.ops.dispatch import resolve_device
+from idiaptts_torch.parallel import mesh as mesh_lib
 from idiaptts_torch.train.model_handler_base import ModelHandler
 from idiaptts_torch.train.schedulers import create_scheduler
 
@@ -101,7 +116,46 @@ class ModularModelHandler(ModelHandler):
         self.epochs_per_scheduler_step = None
         self.residuals_bf16 = None
         self.last_grad_norm = None
+        self.mesh = None
         self.generator = torch.Generator(device=self.device).manual_seed(42)
+
+    # -- data parallelism -------------------------------------------------
+    def setup_mesh(self, num_devices=None, axis_name="data",
+                   model_parallel=1, use_shard_map="auto"):
+        """Train data-parallel over the joined ``torch.distributed`` group
+        (``num_devices``, when given, must equal its size).  The handler
+        moves to the rank's device, its generator is seeded with the
+        rank, and rank 0's parameters and buffers are copied to every
+        rank.  ``use_shard_map`` is accepted for the JAX signature and
+        has no effect; ``model_parallel > 1`` raises."""
+        if (model_parallel or 1) > 1:
+            raise NotImplementedError(
+                "model_parallel={}: tensor parallelism is not ported to "
+                "idiaptts_torch (ROADMAP.md queue 1, the tensor-parallel "
+                "item); train data-parallel with model_parallel=1".format(
+                    model_parallel))
+        self.mesh = mesh_lib.make_data_mesh(num_devices, axis_name,
+                                            self.device)
+        self.device = self.mesh.device
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            42 + self.mesh.rank)
+        if self.model is not None:
+            self.model.to(self.device)
+            mesh_lib.replicate(self.model, self.mesh)
+        return self.mesh
+
+    def _shards(self, data, lengths):
+        """True when every leaf of the batch divides by the world size,
+        so the batch shards (the JAX ``_get_shmap_step`` rule)."""
+        leaves = list(data.values()) + (
+            [] if lengths is None else list(lengths.values())
+            if isinstance(lengths, dict) else [lengths])
+        return all(mesh_lib.divides(v, self.mesh) for v in leaves)
+
+    def _batch_stats(self):
+        """BatchNorm's running averages (the JAX ``batch_stats``)."""
+        return [b for m in self.model.modules() if isinstance(m, _BatchNorm)
+                for b in (m.mean, m.var)]
 
     # -- model creation ---------------------------------------------------
     def create_model(self, model_config, hparams=None, dim_in=None,
@@ -111,9 +165,17 @@ class ModularModelHandler(ModelHandler):
         know their shapes from the config; ``example_batch`` is accepted
         for the JAX handler's signature.)"""
         self.model_config = model_config
-        self.model = model_config.create_model(
-            torch.Generator().manual_seed(seed)).to(self.device)
+        self.init_params(example_batch, seed)
         return self.model
+
+    def init_params(self, example_batch=None, seed=1234):
+        """Fresh weights from a generator seeded with ``seed`` (the JAX
+        handler's flax ``init``; the port's modules know their shapes, so
+        ``example_batch`` is accepted for the signature); returns the
+        named parameters."""
+        self.model = self.model_config.create_model(
+            torch.Generator().manual_seed(seed)).to(self.device)
+        return dict(self.model.named_parameters())
 
     def _batch_to_model_input(self, batch):
         data = {k: torch.as_tensor(v, device=self.device)
@@ -248,13 +310,30 @@ class ModularModelHandler(ModelHandler):
         return torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g.to(torch.float32)) for g in grads]))
 
+    def _sharded_forward(self, data, lengths):
+        """This rank's forward on its rows, its outputs gathered over the
+        ranks (the batch's own tensors taken whole)."""
+        mesh = self.mesh
+        shard = mesh_lib.shard_batch(data, mesh)
+        out = self._apply_model(shard, mesh_lib.shard_batch(lengths, mesh),
+                                training=True)
+        return {k: (data[k] if k in shard and v is shard[k]
+                    else mesh_lib.gather_rows(v, mesh)
+                    if torch.is_tensor(v) and v.dim() >= 1 else v)
+                for k, v in out.items()}
+
     def _train_step(self, data, lengths, lr):
         """One optimiser step; returns (total, {name: loss}, grad norm)
         as device scalars."""
         for group in self.optimiser.param_groups:
             group["lr"] = lr
         self.optimiser.zero_grad(set_to_none=False)
-        out = self._apply_model(data, lengths, training=True)
+        sharded = self.mesh is not None and self.mesh.distributed \
+            and self._shards(data, lengths)
+        if sharded:
+            out = self._sharded_forward(data, lengths)
+        else:
+            out = self._apply_model(data, lengths, training=True)
         total, loss_values = self._losses_total(out, self.total_steps)
         total.backward()
         named = [(n, p) for n, p in self.model.named_parameters()
@@ -263,6 +342,11 @@ class ModularModelHandler(ModelHandler):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for _, p in named]
+        if sharded:
+            # Each rank's gradient is its rows' part of the global one.
+            mesh_lib.all_reduce_gradients([p for _, p in named], self.mesh)
+        elif self.mesh is not None and self.mesh.distributed:
+            mesh_lib.broadcast_flat(grads, self.mesh)
         with torch.no_grad():
             if self.replace_inf_grads_by_zero:
                 for g in grads:
@@ -283,6 +367,15 @@ class ModularModelHandler(ModelHandler):
                 for g in grads:
                     g.clamp_(-self.grad_clip_thresh, self.grad_clip_thresh)
         self.optimiser.step()
+        stats = self._batch_stats() if self.mesh is not None \
+            and self.mesh.distributed else []
+        if sharded and stats:
+            with torch.no_grad():
+                mesh_lib.all_reduce_flat(stats)
+                for b in stats:
+                    b.div_(self.mesh.size)
+        elif stats:
+            mesh_lib.broadcast_flat(stats, self.mesh)
         if self.ema is not None:
             self.ema.update(self.model)
         return total.detach(), loss_values, grad_norm

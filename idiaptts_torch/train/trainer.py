@@ -20,6 +20,17 @@ the readers' original features.
 ``WindowingDatareadersDataset``, whose windows the batcher takes as its
 work items.
 
+Data parallelism: with ``hparams.num_devices > 1`` or
+``distributed_run``, the trainer joins the ``torch.distributed`` group
+(launched by ``torchrun``, one process a rank; ranks that share a card
+use gloo) and checks that ``num_devices`` is its size.  Every rank
+builds the same batches (the same shuffle, and crops drawn from the
+seed) and trains its rows of each through the handler's data-parallel
+step.  Only rank 0 writes checkpoints, TensorBoard, figures and the
+epoch logs; every rank loads checkpoints, and saves are fenced by
+barriers.  ``model_parallel > 1`` (tensor parallelism) raises
+``NotImplementedError``.
+
 Figures: ``gen_figure`` draws each utterance's post-processed outputs
 through :class:`idiaptts_torch.utils.plotter.DataPlotter` (matplotlib,
 imported only there).  Logging: with ``out_dir`` and ``model_name`` set,
@@ -39,12 +50,16 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from idiaptts_torch.data.dataset import (DatareadersDataset,
                                          WindowingDatareadersDataset,
                                          batch_decollate, collate_batch)
 from idiaptts_torch.hparams import ExtendedHParams
+from idiaptts_torch.parallel import mesh as mesh_lib
 from idiaptts_torch.train.handler import ModularModelHandler
+from idiaptts_torch.utils.misc import (get_device_memory_stats,
+                                       get_memory_usage_mb, log_git_hash)
 
 logger = logging.getLogger(__name__)
 
@@ -55,12 +70,18 @@ class ModularTrainer:
 
     def __init__(self, hparams, id_list=None, data_reader_configs=None):
         self.hparams = hparams
+        log_git_hash()
         seed = hparams.get("seed")
         if seed is not None:
             random.seed(seed)
             np.random.seed(seed)
-        self.model_handler = ModularModelHandler(
-            device=hparams.get("device", "cuda"))
+        device = hparams.get("device", "cuda")
+        self.data_parallel = _data_parallel(hparams)
+        self.rank = 0
+        if self.data_parallel:
+            mesh = mesh_lib.initialise_multihost(device=device)
+            device, self.rank = mesh.device, mesh.rank
+        self.model_handler = ModularModelHandler(device=device)
         self.data_reader_configs = data_reader_configs
         self.datareaders = {}
         self.dataset_train = None
@@ -136,6 +157,11 @@ class ModularTrainer:
                 raise ValueError("model_config required for a new model")
             handler.create_model(model_config, hparams,
                                  example_batch=self._example_batch(hparams))
+        if self.data_parallel:
+            handler.setup_mesh(hparams.get("num_devices"),
+                               hparams.get("data_axis", "data"),
+                               hparams.get("model_parallel", 1),
+                               hparams.get("use_shard_map", "auto"))
         handler.set_optimiser(hparams)
         handler.set_scheduler(hparams)
         handler.set_losses(self.loss_configs)
@@ -163,7 +189,8 @@ class ModularTrainer:
         """A tensorboardX writer with the hparams text, when ``out_dir``
         and ``model_name`` are set; a warning if it cannot be created."""
         self.summary_writer = None
-        if not hparams.get("out_dir") or not hparams.get("model_name"):
+        if not hparams.get("out_dir") or not hparams.get("model_name") \
+                or not self.is_writer:
             return
         try:
             from tensorboardX import SummaryWriter
@@ -192,6 +219,17 @@ class ModularTrainer:
         if self.summary_writer is not None:
             self.summary_writer.add_scalar(tag, value, step)
 
+    @property
+    def is_writer(self):
+        """True on the process that writes files and logs results: rank 0
+        of a data-parallel group, or the only one."""
+        return self.rank == 0
+
+    def _log(self, message, *args):
+        """Log a result, on the writing rank only."""
+        if self.is_writer:
+            logger.info(message, *args)
+
     def _setup_datareaders(self, hparams):
         self.datareaders = {}
         for config in (self.data_reader_configs or []):
@@ -209,7 +247,10 @@ class ModularTrainer:
             cls = WindowingDatareadersDataset
         else:
             cls = DatareadersDataset
-        self.dataset_train = cls(self.id_list_train, readers)
+        # Data-parallel ranks must build the same batches, crops included.
+        rng = random.Random(hparams.get("seed")) if self.data_parallel \
+            else None
+        self.dataset_train = cls(self.id_list_train, readers, rng=rng)
         self.dataset_val = cls(self.id_list_val, readers,
                                random_select=False)
         self.dataset_test = cls(self.id_list_test, readers,
@@ -302,7 +343,6 @@ class ModularTrainer:
         profiler_dir = hparams.get("profiler_dir")
         if not profiler_dir:
             return self._train_epochs(hparams)
-        import torch
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.model_handler.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -325,7 +365,7 @@ class ModularTrainer:
                               self.id_list_val or self.id_list_train,
                               hparams.get("batch_size_val", batch_size)),
                 training=False)
-            logger.info("Pre-training validation loss: %f", loss)
+            self._log("Pre-training validation loss: %f", loss)
             all_loss.append(loss)
             if loss < self.best_loss and not math.isnan(loss):
                 self.best_loss = loss
@@ -350,8 +390,8 @@ class ModularTrainer:
                 break
             all_loss_train.append(train_loss)
             self.record_train_loss(per_loss, self.total_epoch)
-            logger.info("Epoch %d train loss: %f", self.total_epoch,
-                        train_loss)
+            self._log("Epoch %d train loss: %f", self.total_epoch,
+                      train_loss)
             self._log_scalar("loss/train", train_loss, self.total_epoch)
             for name, value in per_loss.items():
                 self._log_scalar("loss/train_" + name, value,
@@ -379,8 +419,8 @@ class ModularTrainer:
                     training=False)
                 all_loss.append(val_loss)
                 self.record_validation_loss(val_per_loss, self.total_epoch)
-                logger.info("Epoch %d validation loss: %f",
-                            self.total_epoch, val_loss)
+                self._log("Epoch %d validation loss: %f",
+                          self.total_epoch, val_loss)
                 self._log_scalar("loss/val", val_loss, self.total_epoch)
                 if handler.scheduler is not None:
                     # The plateau metric may track a subset of the losses.
@@ -404,21 +444,18 @@ class ModularTrainer:
                     hparams.out_dir, hparams.model_name, best=True,
                     load_optimiser=False, load_scheduler=False,
                     networks_dir=hparams.get("networks_dir", "nn"))
-                logger.info("Reloaded best model (loss %s)", self.best_loss)
+                self._log("Reloaded best model (loss %s)", self.best_loss)
             except FileNotFoundError:
                 pass
         if hparams.get("save_final_model") and hparams.get("out_dir"):
             self._save(hparams, last=True)
-        logger.info("Training took %.1f s", time.time() - t_start)
+        self._log("Training took %.1f s", time.time() - t_start)
         return all_loss, all_loss_train
 
     def _save(self, hparams, epoch=None, best=False, last=False):
         if not hparams.get("out_dir"):
             return
-        self.model_handler.save_checkpoint(
-            hparams.out_dir, hparams.model_name, epoch=epoch, best=best,
-            last=last, best_loss=self.best_loss,
-            networks_dir=hparams.get("networks_dir", "nn"))
+        self.save_checkpoint(hparams, epoch=epoch, best=best, last=last)
 
     def test(self, hparams, id_list=None):
         ids = id_list or self.id_list_test
@@ -426,7 +463,7 @@ class ModularTrainer:
             self._batches(self.dataset_test or self.dataset_train, ids,
                           hparams.get("batch_size_test", 48)),
             training=False)
-        logger.info("Test loss: %f", loss)
+        self._log("Test loss: %f", loss)
         return loss
 
     @staticmethod
@@ -581,6 +618,8 @@ class ModularTrainer:
         results = self._forward_batched(
             hparams, self._input_to_str_list(id_list),
             hparams.get("batch_size_gen_figure", 48))
+        if not self.is_writer:
+            return []
         return [self.gen_figure_from_output(id_name, sample, hparams)
                 for id_name, sample in results.items()]
 
@@ -717,11 +756,14 @@ class ModularTrainer:
     def record_validation_loss(self, loss_dict, epoch):
         self.validation_losses.append((dict(loss_dict or {}), epoch))
 
+    def _get_loss_names(self):
+        return next((list(store[0][0]) for store in
+                     (self.train_losses, self.validation_losses) if store),
+                    None)
+
     def get_losses(self, start_epoch=-1):
         """({loss_name: array}, {loss_name: array}) for train and val."""
-        names = next((list(store[0][0]) for store in
-                      (self.train_losses, self.validation_losses) if store),
-                     None)
+        names = self._get_loss_names()
         if names is None:
             return None, None
         train = {n: np.array([d[n] for d, e in self.train_losses
@@ -731,6 +773,17 @@ class ModularTrainer:
                             if e >= start_epoch and n in d])
                for n in names}
         return train, val
+
+    def log_losses(self, start_epoch=-1):
+        train, val = self.get_losses(start_epoch)
+        if train is None:
+            return
+        for name in train:
+            self._log("Loss %s validation progress: %s", name,
+                      ", ".join("{:.4f}".format(v)
+                                for v in val.get(name, [])))
+            self._log("Loss %s train progress: %s", name,
+                      ", ".join("{:.4f}".format(v) for v in train[name]))
 
     def reset_best_loss(self):
         self.best_loss = np.inf
@@ -742,10 +795,23 @@ class ModularTrainer:
         return None
 
     def save_checkpoint(self, hparams, epoch=None, best=False, last=False):
-        return self.model_handler.save_checkpoint(
-            hparams.out_dir, hparams.model_name, epoch=epoch, best=best,
-            last=last, best_loss=self.best_loss,
-            networks_dir=hparams.get("networks_dir", "nn"))
+        """Write a checkpoint (rank 0 of a data-parallel group, between
+        two barriers, so no rank reads it half written); returns its
+        directory."""
+        self._barrier()
+        path = self.get_model_path(hparams)
+        if self.is_writer:
+            path = self.model_handler.save_checkpoint(
+                hparams.out_dir, hparams.model_name, epoch=epoch, best=best,
+                last=last, best_loss=self.best_loss,
+                networks_dir=hparams.get("networks_dir", "nn"))
+        self._barrier()
+        return path
+
+    def _barrier(self):
+        mesh = self.model_handler.mesh
+        if mesh is not None and mesh.distributed:
+            torch.distributed.barrier()
 
     def load_checkpoint(self, hparams, epoch=None, step=None, best=False,
                         last=False):
@@ -763,6 +829,100 @@ class ModularTrainer:
     def get_dataset(self, split="train"):
         return {"train": self.dataset_train, "val": self.dataset_val,
                 "test": self.dataset_test}[split]
+
+    # -- reference-surface helpers ------------------------------------------
+    def sanity_check_train(self, hparams):
+        """Pre-training checks: the hparams verify, and a warning where
+        validation and the scheduler's epochs disagree."""
+        assert self.model_handler is not None, \
+            "The init function has not been called before training."
+        hparams.verify()
+        eps = hparams.get("epochs_per_scheduler_step")
+        ept = hparams.get("epochs_per_test", 1)
+        if eps:
+            if ept > eps:
+                logger.warning("Model is validated only every %d epochs but "
+                               "scheduler runs every %d.", ept, eps)
+            if ept % eps != 0:
+                logger.warning("epochs_per_test %% "
+                               "epochs_per_scheduler_step != 0.")
+
+    def log_validation_set(self):
+        if self.id_list_val:
+            logger.info("Validation set (%d): %s", len(self.id_list_val),
+                        self.id_list_to_str(sorted(self.id_list_val)))
+
+    def log_test_set(self):
+        if self.id_list_test:
+            logger.info("Test set (%d): %s", len(self.id_list_test),
+                        self.id_list_to_str(sorted(self.id_list_test)))
+
+    def log_memory(self):
+        logger.info("CPU RSS: %.0f MB", get_memory_usage_mb())
+        stats = get_device_memory_stats()
+        if stats:
+            logger.info("Device memory: %s", stats)
+
+    def get_labels(self, reader_name, id_name):
+        return self.datareaders[reader_name].load(id_name)
+
+    def gen_output(self, hparams, id_list, post_processing_mapping=None):
+        """Forward and save each utterance's post-processed outputs as
+        ``<save_output_dir or out_dir/output>/<id>.npz``, one member per
+        output name (the names of ``post_processing_mapping``, or every
+        output without one); returns the forward's results."""
+        mapping = post_processing_mapping \
+            or getattr(self, "post_processing_mapping", {}) or {}
+        results = self.forward(hparams, list(id_list))
+        out_dir = hparams.get("save_output_dir") \
+            or os.path.join(hparams.get("out_dir") or ".", "output")
+        os.makedirs(out_dir, exist_ok=True)
+        for id_name, sample in results.items():
+            if isinstance(sample, np.ndarray):
+                # A task trainer's forward may return bare arrays.
+                np.savez(os.path.join(out_dir, id_name + ".npz"),
+                         **{next(iter(mapping), "output"): sample})
+                continue
+            arrays = {name: np.asarray(sample[name])
+                      for name in (mapping or sample) if name in sample}
+            if arrays:
+                np.savez(os.path.join(out_dir, id_name + ".npz"), **arrays)
+        return results
+
+    @staticmethod
+    def plot1d(data, path, title=""):
+        """A one-curve figure of ``data`` (flattened) at ``path``."""
+        from idiaptts_torch.utils.plotter import DataPlotter
+        with DataPlotter() as plotter:
+            plotter.set_data_list(0, [(np.asarray(data).reshape(-1),
+                                       title or "data")])
+            plotter.gen_plot()
+            plotter.save_to_file(path)
+        return path
+
+    @staticmethod
+    def plot_specshow(spec, path, title=""):
+        """An image figure of a (T, bins) spectrogram at ``path``."""
+        from idiaptts_torch.utils.plotter import DataPlotter
+        with DataPlotter() as plotter:
+            plotter.set_spec_data(0, np.asarray(spec), label=title or "spec")
+            plotter.gen_plot()
+            plotter.save_to_file(path)
+        return path
+
+
+def _data_parallel(hparams):
+    """Whether ``hparams`` ask for data-parallel training; tensor
+    parallelism raises."""
+    model_parallel = hparams.get("model_parallel", 1) or 1
+    if model_parallel > 1:
+        raise NotImplementedError(
+            "model_parallel={}: tensor parallelism is not ported to "
+            "idiaptts_torch (ROADMAP.md queue 1, the tensor-parallel item); "
+            "train data-parallel with model_parallel=1".format(
+                model_parallel))
+    return (hparams.get("num_devices", 1) or 1) > 1 \
+        or bool(hparams.get("distributed_run"))
 
 
 def _figure_path(id_name, hparams):

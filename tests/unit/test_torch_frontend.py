@@ -58,9 +58,15 @@ def front_ends():
 
 
 def test_default_lexicon_is_the_jax_package_asset():
+    """The port reads its own copy, byte for byte the JAX asset."""
     assert os.path.isfile(torch_frontend.DEFAULT_LEXICON)
-    assert os.path.samefile(torch_frontend.DEFAULT_LEXICON,
-                            jax_frontend.DEFAULT_LEXICON)
+    assert not os.path.samefile(torch_frontend.DEFAULT_LEXICON,
+                                jax_frontend.DEFAULT_LEXICON)
+    assert os.path.dirname(torch_frontend.DEFAULT_LEXICON) == os.path.join(
+        os.path.dirname(os.path.dirname(torch_frontend.__file__)), "assets")
+    with open(torch_frontend.DEFAULT_LEXICON, "rb") as got, \
+            open(jax_frontend.DEFAULT_LEXICON, "rb") as ref:
+        assert got.read() == ref.read()
 
 
 @pytest.mark.parametrize("accent", ACCENTS)

@@ -80,6 +80,16 @@ MODULES = [
     "idiaptts_torch.train.vtln_trainer",
     "idiaptts_torch.train.enc_dec_trainer",
     "idiaptts_torch.train.classification",
+    "idiaptts_torch.utils.misc",
+    "idiaptts_torch.utils.equality",
+    "idiaptts_torch.ops.enhancement",
+    "idiaptts_torch.data.audio_tools",
+    "idiaptts_torch.data.convert_to_npz",
+    "idiaptts_torch.data.opensmile",
+    "idiaptts_torch.parallel.mesh",
+    "idiaptts_torch.egs.recipe_common",
+    "idiaptts_torch.egs.ljspeech_demo",
+    "idiaptts_torch.egs.intonation_demo",
     "chip_smoke",
     "probe_bilstm_proj",
 ]
