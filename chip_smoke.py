@@ -214,6 +214,24 @@ other error raises at once):
    padded tails silent.
    (e) ``enhance`` of a fixture wav plus seeded noise, card against CPU
    in float64 (``ENHANCE_TOL`` of the peak).
+15. Tensor parallelism.  (a) The one-direction instances of the
+   projection, K3, K4 and K5 (``*_onedir``) on each direction's inputs
+   at T = 1024, B = 8 and 32, F = 512 and at F = 64: ``torch.equal`` to
+   that half of the two-direction launch, within the two-direction
+   tolerances of their plain versions, timed beside them and a
+   unidirectional cuDNN LSTM.  (b) ``MODEL_STRING`` trained at
+   ``model_parallel=2`` by two gloo ranks that share the card, spawned
+   as ``--tp-worker``, on phase 14's batch: 3 steps held to the
+   one-process step (losses, the gathered parameters, the grad norm), 3
+   timed; where the machine has the cards, NCCL one rank a card at
+   model 2, data 2 x model 2 and model 4.  (c) Every rank launches the
+   one-direction projection, K4 and K5 ``TP_LAUNCHES`` times each and
+   no two-direction kernel, and holds the parameter bytes that
+   ``make_param_shardings`` gives.  (d) A TP evaluation and inference
+   (one-direction projection and K3).  (e) The TP checkpoint (rank 0
+   wrote it) loaded into a one-process handler: the same parameters,
+   its forward against the TP forward.  ``chip_smoke.py --phase15``
+   runs phases 1, 2 and 15 alone.
 
 The last three lines of standard output are the kernels JSON (every
 kernel with its bound, its plain version's and the library call's time),
@@ -296,6 +314,17 @@ KERNEL_SOURCES = {
                    "idiaptts_tpu/ops/pallas_lstm.py:264"),
     "wavenet_sampler": ("idiaptts_torch/csrc/wavenet_sampler.cu",
                         "idiaptts_tpu/ops/pallas_wavenet.py:54"),
+    # The one-direction instances (ndir = 1) that a tensor-parallel rank
+    # launches on its BiLSTM direction.
+    "bilstm_proj_onedir": ("idiaptts_torch/csrc/bilstm_proj.cu",
+                           "idiaptts_tpu/ops/pallas_lstm.py:590"),
+    "bilstm_recurrence_onedir": ("idiaptts_torch/csrc/bilstm_recurrence.cu",
+                                 "idiaptts_tpu/ops/pallas_lstm.py:76"),
+    "bilstm_recurrence_train_onedir": (
+        "idiaptts_torch/csrc/bilstm_recurrence.cu",
+        "idiaptts_tpu/ops/pallas_lstm.py:161"),
+    "bilstm_bwd_onedir": ("idiaptts_torch/csrc/bilstm_bwd.cu",
+                          "idiaptts_tpu/ops/pallas_lstm.py:264"),
 }
 SERVE_KERNELS = ("banded_solve", "bilstm_proj", "bilstm_recurrence")
 TRAIN_KERNELS = ("bilstm_proj", "bilstm_recurrence_train", "bilstm_bwd",
@@ -481,6 +510,30 @@ DP_KERNELS = ("bilstm_proj", "bilstm_recurrence_train", "bilstm_bwd")
 # The spawned worlds: (name, ranks, backend).  Two ranks share the card,
 # which NCCL refuses, so they use gloo; NCCL runs a world of one.
 DP_WORLDS = (("gloo_2", 2, "gloo"), ("nccl_1", 1, "nccl"))
+# Phase 15: tensor parallelism.  (a) The one-direction kernel instances
+# at the training shapes (T, B, D, F) and at the narrow width.  (b) The
+# phase 14 batch and SGD steps of the Interspeech'18 model at
+# model_parallel = M, against the one-process step at phase 14's bounds
+# (tests/unit/test_torch_tensor_parallel.py), the grad norm at rtol 1e-3;
+# K7's projection, K4 and K5 in their one-direction instances, once a
+# layer and step on every rank: TP_LAUNCHES each.  (e) The TP
+# checkpoint's one-process forward against the TP forward, relative to
+# the output's magnitude: a column-parallel Dense layer's local GEMM is
+# narrower than the one-process GEMM, so a bf16 product may round the
+# other way and ride the recurrence (phase 11/13's 2**-6).
+TP_MODEL = MODEL_STRING
+TP_ONEDIR_SHAPES = ((TRAIN_T, 8, D_IN, F_HIDDEN), (TRAIN_T, 32, D_IN,
+                                                   F_HIDDEN),
+                    (TRAIN_T, NARROW_TRAIN_B) + NARROW)
+TP_KERNELS = ("bilstm_proj_onedir", "bilstm_recurrence_train_onedir",
+              "bilstm_bwd_onedir")
+TP_LAUNCHES = DP_STEPS * 3
+TP_NORM_RTOL = 1e-3
+TP_FORWARD_TOL = 2.0 ** -6
+# (name, ranks, model_parallel, backend, cards needed): two gloo ranks
+# share one card; NCCL takes one card a rank.
+TP_WORLDS = (("gloo_m2", 2, 2, "gloo", 1), ("nccl_m2", 2, 2, "nccl", 2),
+             ("nccl_d2m2", 4, 2, "nccl", 4), ("nccl_m4", 4, 4, "nccl", 4))
 # Phase 14 (b): egs.ljspeech_demo at full width.  Stages 1-7 with the
 # recipe's default 8 epochs for the duration and acoustic models: after
 # fewer, the Interspeech'18 model's served audio stays below one PCM
@@ -607,20 +660,20 @@ def bound(flops, flop_peak, nbytes):
             "operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def lstm_bound(T, R, D, F, what, res_bytes=4):
-    """Bound of one BiLSTM kernel's work over T steps of R rows (2*Bp):
-    the bf16 products it needs and each input read and output written
-    once.  ``what``: "proj" (bf16(x Wx) + b), "rec" (inference
-    recurrence), "rec_train" (plus the gates and cells in
+def lstm_bound(T, R, D, F, what, res_bytes=4, ndir=2):
+    """Bound of one BiLSTM kernel's work over T steps of R rows (ndir*Bp,
+    ``ndir`` directions): the bf16 products it needs and each input read
+    and output written once.  ``what``: "proj" (bf16(x Wx) + b), "rec"
+    (inference recurrence), "rec_train" (plus the gates and cells in
     ``res_bytes``-byte residuals), "bwd" (dz from the residuals, the
     upstream dL/dh and Wh)."""
     G = 4 * F
     if what == "proj":
         return bound(2.0 * T * R * D * G, PEAK_BF16_FLOPS,
-                     T * R * D * 2 + 2 * D * G * 2 + 2 * G * 4
+                     T * R * D * 2 + ndir * D * G * 2 + ndir * G * 4
                      + T * R * G * 4)
     rec_flops = 2.0 * T * R * F * G
-    wh_bytes = 2 * F * G * 2
+    wh_bytes = ndir * F * G * 2
     if what == "rec":
         return bound(rec_flops, PEAK_BF16_FLOPS,
                      T * R * G * 4 + wh_bytes + T * R * F * 4)
@@ -635,15 +688,15 @@ def lstm_bound(T, R, D, F, what, res_bytes=4):
     raise ValueError(what)
 
 
-def cudnn_lstm(torch, D, F, device):
+def cudnn_lstm(torch, D, F, device, bidirectional=True):
     """cuDNN's bidirectional LSTM in bf16 with the forget-gate bias +1
     folded into its bias: the library call that computes a BiLSTM layer
     (input projection included, as cuDNN always does).  Timed as a
     yardstick only; the port never calls it.  PyTorch keeps bf16 weights
     out of cuDNN's flat buffer, so each call also compacts them (12.6 MB
     at D=1024, F=512), inside the time taken."""
-    lstm = torch.nn.LSTM(D, F, bidirectional=True).to(device,
-                                                      torch.bfloat16)
+    lstm = torch.nn.LSTM(D, F, bidirectional=bidirectional).to(
+        device, torch.bfloat16)
     with torch.no_grad():
         for name, p in lstm.named_parameters():
             if name.startswith("bias_ih"):
@@ -4094,7 +4147,9 @@ def dp_batch(torch, device, lengths):
 def dp_steps(torch, handler, batch):
     """DP_STEPS checked steps (counters reset just before, read just
     after), the parameters after them, then the step's host-clock ms over
-    DP_TIME_REPS more (each step ends in a host read of its loss)."""
+    DP_TIME_REPS more (each step ends in a host read of its loss).  The
+    parameters are the one-device state dict (gathered from the shards
+    under tensor parallelism: every rank calls this)."""
     from idiaptts_torch.ops import dispatch
 
     def sync():
@@ -4106,7 +4161,7 @@ def dp_steps(torch, handler, batch):
     sync()
     launches = dispatch.counts()
     state = {k: v.detach().cpu().clone()
-             for k, v in handler.model.state_dict().items()}
+             for k, v in handler.full_state_dict().items()}
     t0 = time.perf_counter()
     for _ in range(DP_TIME_REPS):
         handler.process_batches([batch])
@@ -4186,8 +4241,10 @@ def spawn_ranks(world, backend, device, workdir):
     return [torch.load(path, weights_only=False) for path in outs]
 
 
-def _dp_against(torch, name, ranks, ref_losses, ref_state):
-    """Losses and rank 0's parameters against the one-process step."""
+def _dp_against(torch, name, ranks, ref_losses, ref_state,
+                kernels=DP_KERNELS):
+    """Losses and rank 0's parameters against the one-process step, and
+    ``kernels`` launched on every rank."""
     losses = ranks[0]["losses"]
     rel = float(np.max(np.abs(np.asarray(losses) - ref_losses)
                        / np.abs(ref_losses)))
@@ -4206,7 +4263,7 @@ def _dp_against(torch, name, ranks, ref_losses, ref_state):
             fail("{}: parameter {} beyond rtol {} atol {} of the one-process"
                  " step".format(name, key, DP_PARAM_RTOL, DP_PARAM_ATOL))
     for rank in ranks:
-        require_launches(rank["launches"], DP_KERNELS,
+        require_launches(rank["launches"], kernels,
                          "{} rank {}".format(name, rank["rank"]))
     if len({tuple(r["losses"]) for r in ranks}) != 1:
         fail("{}: ranks report different losses".format(name))
@@ -4485,6 +4542,386 @@ def port_surface(torch, device, card, workdir):
     return out
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+def _onedir_inputs(torch, gen, T, B, D, F):
+    """Seeded two-direction inputs of one layer: xin (T, 2B, D) bf16, Wx
+    (2, D, 4F) bf16, the bias (2, 4F), wh_cat (2F, 4F) bf16 and an
+    upstream cotangent (T, 2B, F)."""
+    xin, wx, bias = projection_inputs(torch, gen, T, B, D, F)
+    wh = (torch.randn(2 * F, 4 * F, generator=gen, device=gen.device)
+          / np.sqrt(F)).to(torch.bfloat16)
+    gout = 0.1 * torch.randn(T, 2 * B, F, generator=gen, device=gen.device)
+    return xin, wx, bias, wh, gout
+
+
+def onedir_kernel_checks(torch, device, shapes=TP_ONEDIR_SHAPES, reps=5):
+    """Phase 15 (a): the one-direction instances of the projection, K3,
+    K4 and K5 on each direction's inputs, ``torch.equal`` to that half of
+    the two-direction launch, and against their plain versions on the
+    same inputs (the two-direction kernels' tolerances); then timed
+    beside their plain versions and a unidirectional cuDNN LSTM (a bf16
+    ``torch.mm`` for the projection).  Returns {kernel name: {tag:
+    measurements}}, tag B for F = F_HIDDEN and "narrow" for F = 64."""
+    from idiaptts_torch.ops import cuda_lstm
+    gen = torch.Generator(device=device).manual_seed(1515)
+    names = ("bilstm_proj_onedir", "bilstm_recurrence_onedir",
+             "bilstm_recurrence_train_onedir", "bilstm_bwd_onedir")
+    out = {n: {} for n in names}
+    for T, B, D, F in shapes:
+        tag = B if F == F_HIDDEN else "narrow"
+        shape = "T={},R={},D={},F={}".format(T, B, D, F)
+        xin, wx, bias, wh, gout = _onedir_inputs(torch, gen, T, B, D, F)
+        xp2 = cuda_lstm.bilstm_projection_tmajor(xin, wx, bias)
+        h2 = cuda_lstm.bilstm_recurrence_tmajor(xp2, wh)
+        train2 = {res: cuda_lstm.bilstm_recurrence_train_tmajor(xp2, wh, res)
+                  for res in (False, True)}
+        dz2 = {res: cuda_lstm.dz_bwd_tmajor(a, c, gout, wh)
+               for res, (_, a, c) in train2.items()}
+        halves = True
+        for d in range(2):
+            rows, units = slice(d * B, (d + 1) * B), slice(d * F, (d + 1) * F)
+            xp1 = cuda_lstm.bilstm_projection_tmajor(
+                xin[:, rows].contiguous(), wx[d:d + 1], bias[d:d + 1])
+            same = [torch.equal(xp1, xp2[:, rows]),
+                    torch.equal(cuda_lstm.bilstm_recurrence_tmajor(
+                        xp1, wh[units]), h2[:, rows])]
+            for res, (h, a, c) in train2.items():
+                h1, a1, c1 = cuda_lstm.bilstm_recurrence_train_tmajor(
+                    xp1, wh[units], res)
+                same += [torch.equal(h1, h[:, rows]),
+                         torch.equal(a1, a[:, rows]),
+                         torch.equal(c1, c[:, rows]),
+                         torch.equal(cuda_lstm.dz_bwd_tmajor(
+                             a1, c1, gout[:, rows].contiguous(), wh[units]),
+                             dz2[res][:, rows])]
+            if not all(same):
+                halves = False
+                fail("one-direction instances differ from the two-direction "
+                     "launch's direction {} half ({}): {}".format(
+                         d, shape, same))
+        log("  one-direction {}: projection, K3, K4 (f32 and bf16 "
+            "residuals) and K5 torch.equal to both halves: {}".format(
+                shape, halves))
+        # Against the plain versions, direction 0's inputs.
+        x1, w1, b1 = xin[:, :B].contiguous(), wx[:1], bias[:1]
+        wh1, g1 = wh[:F], gout[:, :B].contiguous()
+        # The bf16 products (zero bias) at most one bf16 ulp apart, rarely;
+        # the bias one float32 add after them (as projection_entry).
+        zero = torch.zeros_like(b1)
+        p_k = cuda_lstm.bilstm_projection_tmajor(x1, w1, zero)
+        p_p = cuda_lstm.projection_tmajor_plain(x1, w1, zero)
+        d_p = (p_k - p_p).abs()
+        proj_excess = (d_p - bf16_ulp(torch, torch.maximum(
+            p_k.abs(), p_p.abs())) - 1e-5).max().item()
+        if proj_excess > 0 or (d_p > 0).float().mean().item() > 1e-2:
+            fail("bilstm_proj_onedir beyond rare one-ulp flips ({})".format(
+                shape))
+        xp1 = cuda_lstm.bilstm_projection_tmajor(x1, w1, b1)
+        if not torch.equal(xp1, p_k + b1[0]):
+            fail("bilstm_proj_onedir bias add differs ({})".format(shape))
+        h1 = cuda_lstm.bilstm_recurrence_tmajor(xp1, wh1)
+        h1_p = cuda_lstm.recurrence_tmajor_plain(xp1, wh1)
+        rec_err = (h1 - h1_p).abs().max().item()
+        _check("bilstm_recurrence_onedir", rec_err, REC_TOL, shape)
+        ht, a1, c1 = cuda_lstm.bilstm_recurrence_train_tmajor(xp1, wh1)
+        ht_p, a1_p, c1_p = cuda_lstm.recurrence_train_tmajor_plain(xp1, wh1)
+        tr_errs = {"h": (ht - ht_p).abs().max().item(),
+                   "a": (a1 - a1_p).abs().max().item(), "c": _rel(c1, c1_p)}
+        for k, e in tr_errs.items():
+            _check("rec_train_onedir " + k, e, REC_TOL, shape)
+        dz1 = cuda_lstm.dz_bwd_tmajor(a1, c1, g1, wh1)
+        dz1_p = cuda_lstm.dz_bwd_tmajor_plain(a1, c1, g1, wh1)
+        _check("bilstm_bwd_onedir dz", _rel(dz1, dz1_p), 1e-3, shape)
+        # Times beside the plain versions and the library yardsticks.
+        lstm = cudnn_lstm(torch, D, F, device, bidirectional=False)
+        x_seq = x1.detach().clone().requires_grad_()
+        lib_eval = cuda_ms(torch, lambda: lstm.eval()(x_seq.detach()), reps)
+        lstm.train()
+        lib_fwd = cuda_ms(torch, lambda: lstm(x_seq), reps)
+        y_seq, _ = lstm(x_seq)
+        gy = torch.randn(y_seq.shape, generator=gen, device=device,
+                         dtype=y_seq.dtype)
+        lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            y_seq, x_seq, gy, retain_graph=True), reps)
+        x_flat = x1.reshape(T * B, D)
+        entries = {
+            "bilstm_proj_onedir": (
+                lambda: cuda_lstm.bilstm_projection_tmajor(x1, w1, b1),
+                lambda: cuda_lstm.projection_tmajor_plain(x1, w1, b1),
+                cuda_ms(torch, lambda: torch.mm(x_flat, w1[0]), reps),
+                d_p.max().item(), "proj", 10),
+            "bilstm_recurrence_onedir": (
+                lambda: cuda_lstm.bilstm_recurrence_tmajor(xp1, wh1),
+                lambda: cuda_lstm.recurrence_tmajor_plain(xp1, wh1),
+                lib_eval, rec_err, "rec", 1),
+            "bilstm_recurrence_train_onedir": (
+                lambda: cuda_lstm.bilstm_recurrence_train_tmajor(xp1, wh1),
+                lambda: cuda_lstm.recurrence_train_tmajor_plain(xp1, wh1),
+                lib_fwd, max(tr_errs.values()), "rec_train", 1),
+            "bilstm_bwd_onedir": (
+                lambda: cuda_lstm.dz_bwd_tmajor(a1, c1, g1, wh1),
+                lambda: cuda_lstm.dz_bwd_tmajor_plain(a1, c1, g1, wh1),
+                lib_bwd, (dz1 - dz1_p).abs().max().item(), "bwd", 1)}
+        for name, (kernel, plain, lib_ms, err, what, plain_reps) \
+                in entries.items():
+            ms = cuda_ms(torch, kernel, reps)
+            bound_ms, bound_by = lstm_bound(T, B, D, F, what, ndir=1)
+            out[name][tag] = dict(
+                shape=shape, max_abs_err=err, ms=ms,
+                plain_ms=cuda_ms(torch, plain, plain_reps),
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                halves_equal=halves)
+            if what != "proj":
+                out[name][tag]["us_per_step"] = ms * 1e3 / T
+            log("  {:<31s} {:<24s} kernel {:9.4f} ms | plain {:9.4f} ms | "
+                "library {:9.4f} ms | bound {:8.4f} ms ({})".format(
+                    name, shape, ms, out[name][tag]["plain_ms"], lib_ms,
+                    bound_ms, bound_by))
+        del xin, wx, xp2, h2, train2, dz2, lstm, y_seq, x_seq
+        torch.cuda.empty_cache()
+    return out
+
+
+def param_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def tp_worker(config):
+    """One rank of phase 15 (b)-(e), run as ``chip_smoke.py --tp-worker
+    CONFIG`` (JSON: rank, world, model_parallel, backend, url, out,
+    device, model, lengths, checkpoint): the checked and timed steps, an
+    evaluation and an inference, each with the counters reset just
+    before and read just after, and a checkpoint (rank 0 writes)."""
+    import torch
+    rank, world = config["rank"], config["world"]
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, REPO)
+    from idiaptts_torch.ops import (cuda_lstm, cuda_mlpg,  # noqa: F401
+                                    cuda_wavenet, dispatch)
+    from idiaptts_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = mesh_lib.rank_device(config["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        dispatch.library()
+    mesh_lib.initialise_multihost(config["url"], world, rank,
+                                  backend=config["backend"], device=device)
+    handler = dp_handler(device, config["model"])
+    handler.setup_mesh(world, model_parallel=config["model_parallel"])
+    batch = dp_batch(torch, device, config["lengths"])
+    losses, launches, state, ms = dp_steps(torch, handler, batch)
+    norm = handler.last_grad_norm
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    dispatch.reset_counts()
+    val = handler.process_batches([batch], training=False)[0]
+    pred = handler.inference(batch)["pred"]
+    sync()
+    eval_launches = dispatch.counts()
+    handler.save_checkpoint(config["checkpoint"], "tp",
+                            step=handler.total_steps)
+    final = {k: v.detach().cpu().clone()
+             for k, v in handler.full_state_dict().items()}
+    torch.save({"rank": rank, "mesh": repr(handler.mesh),
+                "backend": config["backend"], "losses": losses,
+                "grad_norm": norm, "launches": launches, "ms": ms,
+                "val": val, "eval_launches": eval_launches,
+                "bytes": param_bytes(handler.model),
+                "state": state if rank == 0 else None,
+                "final_state": final if rank == 0 else None,
+                "pred": pred if rank == 0 else None}, config["out"])
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_tp_ranks(name, world, model_parallel, backend, device, workdir):
+    """Run ``world`` ranks of ``tp_worker`` (ranks that share a card get
+    ``device``; NCCL ranks one card each); returns their outputs.  Every
+    process is waited for (or killed at the time limit)."""
+    import torch
+    url = "tcp://localhost:{}".format(_free_port())
+    env = dict(os.environ, PYTHONPATH=REPO)
+    outs = [os.path.join(workdir, "tp_{}_{}.pt".format(name, r))
+            for r in range(world)]
+    ckpt = os.path.join(workdir, "tp_ckpt_" + name)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-worker",
+         json.dumps({"rank": r, "world": world,
+                     "model_parallel": model_parallel, "backend": backend,
+                     "url": url, "out": outs[r],
+                     "device": "cuda" if backend == "nccl" else str(device),
+                     "model": TP_MODEL, "lengths": list(DP_LENGTHS),
+                     "checkpoint": ckpt})],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=300)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, text) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            raise RuntimeError("{} rank {} of {} exited {}:\n{}".format(
+                name, r, world, proc.returncode, text[-3000:]))
+    return [torch.load(path, weights_only=False) for path in outs], ckpt
+
+
+def expected_tp_bytes(model, model_parallel):
+    """A rank's parameter bytes under make_param_shardings at M."""
+    from idiaptts_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.TensorMesh(mesh_lib.DataMesh(1, 0, "cpu"),
+                               mesh_lib.DataMesh(model_parallel, 0, "cpu"),
+                               "cpu")
+    shardings = mesh_lib.make_param_shardings(model, mesh)
+    total = 0
+    for name, p in model.named_parameters():
+        dim = shardings[name]
+        parts = 1 if dim is None else min(model_parallel, p.shape[dim])
+        total += p.numel() * p.element_size() // parts
+    return total
+
+
+def _tp_against(torch, name, M, ranks, ref, expect_bytes):
+    """Phase 15 (b, c): losses, rank 0's gathered parameters and the grad
+    norm against the one-process step; every rank's one-direction
+    launches (TP_LAUNCHES of each of TP_KERNELS, none of the
+    two-direction kernels) and parameter bytes."""
+    out = _dp_against(torch, name, ranks, ref["losses"], ref["state"],
+                      TP_KERNELS)
+    norm_rel = abs(ranks[0]["grad_norm"] - ref["grad_norm"]) \
+        / ref["grad_norm"]
+    if not norm_rel <= TP_NORM_RTOL:
+        fail("{}: grad norm {} vs one process {}".format(
+            name, ranks[0]["grad_norm"], ref["grad_norm"]))
+    for rank in ranks:
+        counts = rank["launches"]
+        wrong = {k: counts.get(k, 0) for k in TP_KERNELS
+                 if counts.get(k, 0) != TP_LAUNCHES}
+        wrong.update({k: counts[k] for k in DP_KERNELS if counts.get(k)})
+        if wrong:
+            fail("{} rank {}: launches {} (want {} of each of {} and no "
+                 "two-direction launch)".format(name, rank["rank"], wrong,
+                                                TP_LAUNCHES, TP_KERNELS))
+        ev = rank["eval_launches"]
+        if ev.get("bilstm_recurrence_onedir", 0) < 1 \
+                or ev.get("bilstm_proj_onedir", 0) < 1:
+            fail("{} rank {}: the TP evaluation launched {}".format(
+                name, rank["rank"], ev))
+        if rank["bytes"] != expect_bytes:
+            fail("{} rank {}: {} parameter bytes, want {}".format(
+                name, rank["rank"], rank["bytes"], expect_bytes))
+    val_rel = abs(ranks[0]["val"] - ref["val"]) / ref["val"]
+    if not val_rel <= DP_LOSS_RTOL:
+        fail("{}: evaluation loss {} vs one process {}".format(
+            name, ranks[0]["val"], ref["val"]))
+    out.update(model_parallel=M, grad_norm_rel=norm_rel, val_rel=val_rel,
+               bytes_by_rank=[r["bytes"] for r in ranks],
+               bytes_share=ranks[0]["bytes"] / ref["bytes"],
+               eval_launches_by_rank=[r["eval_launches"] for r in ranks],
+               mesh_by_rank=[r["mesh"] for r in ranks])
+    return out
+
+
+def _tp_checkpoint(torch, device, name, ckpt, rank0):
+    """Phase 15 (e): the TP checkpoint that rank 0 wrote, loaded into a
+    one-process handler (as the trainer's init loads one): the gathered
+    parameters bit for bit, and its forward against the TP forward."""
+    from idiaptts_torch.train.handler import ModularModelHandler
+    one = ModularModelHandler(device=device)
+    one.load_checkpoint(ckpt, "tp")
+    same = all(torch.equal(one.model.state_dict()[k].cpu(), v)
+               for k, v in rank0["final_state"].items())
+    if not same:
+        fail("{}: the TP checkpoint loads other parameters".format(name))
+    pred = one.inference(dp_batch(torch, device, DP_LENGTHS))["pred"]
+    err = float(np.abs(pred - rank0["pred"]).max()
+                / max(1.0, np.abs(pred).max()))
+    if not err <= TP_FORWARD_TOL:
+        fail("{}: one-process forward of the TP checkpoint {:.3e} from the "
+             "TP forward".format(name, err))
+    return {"params_equal": same, "forward_rel": err}
+
+
+def tensor_parallel(torch, device, card, workdir):
+    """Phase 15: (a) the one-direction kernel instances; (b) the
+    Interspeech'18 model trained at model_parallel=2 by two gloo ranks
+    that share the card (and over NCCL, one rank a card, where there are
+    cards enough) against the one-process step; (c) each rank's
+    launches and parameter bytes; (d) a TP evaluation and inference;
+    (e) the TP checkpoint in a one-process handler."""
+    t0 = time.perf_counter()
+    out = {}
+    log("  (a) one-direction instances, T={} B={} D={} F={} and F={} "
+        "[{}]".format(TRAIN_T, [s[1] for s in TP_ONEDIR_SHAPES], D_IN,
+                      F_HIDDEN, NARROW[1], card))
+    out["onedir"] = onedir_kernel_checks(torch, device, TP_ONEDIR_SHAPES)
+    log("  (b) {} at D_in={}, B={} T={} (lengths {}), SGD lr {}".format(
+        TP_MODEL, TRAIN_D_IN, len(DP_LENGTHS), max(DP_LENGTHS),
+        DP_LENGTHS, DP_LR))
+    handler = dp_handler(device, TP_MODEL)
+    batch = dp_batch(torch, device, DP_LENGTHS)
+    losses, launches, state, ms = dp_steps(torch, handler, batch)
+    ref = {"losses": losses, "state": state, "step_ms": ms,
+           "launches": launches, "grad_norm": handler.last_grad_norm,
+           "val": handler.process_batches([batch], training=False)[0],
+           "bytes": param_bytes(handler.model)}
+    expect = {M: expected_tp_bytes(handler.model, M) for M in (2, 4)}
+    del handler, batch
+    torch.cuda.empty_cache()
+    log("  one process: losses {} | {:.3f} ms a step | {} parameter bytes "
+        "[{}]".format(["{:.6f}".format(x) for x in losses], ms,
+                      ref["bytes"], card))
+    out["one_process"] = {k: ref[k] for k in (
+        "losses", "step_ms", "launches", "grad_norm", "val", "bytes")}
+    cards = torch.cuda.device_count()
+    for name, world, M, backend, need in TP_WORLDS:
+        if cards < need:
+            log("  {}: needs {} cards, this machine has {}; not run".format(
+                name, need, cards))
+            continue
+        t1 = time.perf_counter()
+        ranks, ckpt = spawn_tp_ranks(name, world, M, backend, device,
+                                     workdir)
+        res = _tp_against(torch, name, M, ranks, ref, expect[M])
+        res["spawn_s"] = time.perf_counter() - t1
+        if name == TP_WORLDS[0][0]:
+            res["checkpoint"] = _tp_checkpoint(torch, device, name, ckpt,
+                                               ranks[0])
+        out[name] = res
+        log("  {} ({}): losses {} (relative {:.2e}), grad norm relative "
+            "{:.2e}, parameters' largest excess over rtol {:.2e} ({}) | {} "
+            "ms a step by rank | {:.4f} of the parameter bytes a rank | "
+            "launches rank 0 {} | eval {} | {:.1f} s with start-up [{}]"
+            .format(name, ranks[0]["mesh"],
+                    ["{:.6f}".format(x) for x in res["losses"]],
+                    res["loss_rel"], res["grad_norm_rel"],
+                    res["param_excess_over_rtol"], res["param_worst"],
+                    ["{:.3f}".format(x) for x in res["step_ms_by_rank"]],
+                    res["bytes_share"], json.dumps({
+                        k: v for k, v in ranks[0]["launches"].items() if v}),
+                    json.dumps({k: v for k, v in ranks[0][
+                        "eval_launches"].items() if v}), res["spawn_s"],
+                    card))
+        if "checkpoint" in res:
+            log("  (e) {} checkpoint in one process: parameters equal {}, "
+                "forward {:.3e} of the TP forward".format(
+                    name, res["checkpoint"]["params_equal"],
+                    res["checkpoint"]["forward_rel"]))
+    out["seconds"] = time.perf_counter() - t0
+    log("  phase 15 took {:.1f} s".format(out["seconds"]))
+    return out
+
+
 def require_launches(launches, names, path):
     """Every kernel of a path must have launched during its run."""
     missing = [k for k in names if launches.get(k, 0) < 1]
@@ -4498,6 +4935,8 @@ def main():
 
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
         return dp_worker(json.loads(sys.argv[2]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--tp-worker":
+        return tp_worker(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -4513,6 +4952,9 @@ def main():
 
     log("== phase 2: build")
     build()
+
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase15":
+        return _phase15_alone(torch, device, card)
 
     log("== phase 3: kernels against their plain versions [{}]".format(
         card))
@@ -4553,6 +4995,26 @@ def main():
                               serve_launches)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _phase15_alone(torch, device, card):
+    """``chip_smoke.py --phase15``: phases 1, 2 and 15 only (on every
+    card the machine has, for the NCCL worlds); prints phase 15's results
+    as one JSON line and the card's name and power limit."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        log("== phase 15: tensor parallelism on {}".format(device))
+        tp = tensor_parallel(torch, device, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if FAILURES:
+        log("== {} check(s) failed:".format(len(FAILURES)))
+        for message in FAILURES:
+            log("  ", message)
+        return 1
+    print(json.dumps({"phase15": tp}, default=float))
+    print(card)
+    return 0
 
 
 def _phases_6_to_9(torch, device, card, workdir, kres, tres,
@@ -4615,6 +5077,11 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
         "serving and enhancement on {}".format(device))
     surface = port_surface(torch, device, card, workdir)
     dp = surface["data_parallel"]
+    torch.cuda.empty_cache()
+    log("== phase 15: tensor parallelism on {}".format(device))
+    tp = tensor_parallel(torch, device, card, workdir)
+    tp_runs = {k: v for k, v in tp.items()
+               if isinstance(v, dict) and "launches_by_rank" in v}
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -4623,6 +5090,9 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
         elif name in tres:      # training shapes (phase 5)
             first = tres[name][TRAIN_BATCHES[0]]
             second = tres[name][TRAIN_BATCHES[1]]
+        elif name in tp["onedir"]:     # one-direction shapes (phase 15)
+            first = tp["onedir"][name][TRAIN_BATCHES[0]]
+            second = tp["onedir"][name][TRAIN_BATCHES[1]]
         elif name == "mlpg_oneshot":    # evaluation shapes (phase 9)
             first = mres[MLPG_SHAPES[0]]
             second = {"T={},L={}".format(*k): v for k, v in mres.items()
@@ -4668,7 +5138,16 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
                    **{"ljspeech_stage{}".format(n): counts.get(name, 0)
                       for n, counts in surface["ljspeech"][
                           "launches"].items()},
-                   "split_serve": surface["split"]["launches"][name]}
+                   "split_serve": surface["split"]["launches"][name],
+                   "tp_one_process": tp["one_process"]["launches"].get(
+                       name, 0),
+                   **{"tp_{}_rank{}".format(w, r): counts.get(name, 0)
+                      for w, res in tp_runs.items()
+                      for r, counts in enumerate(res["launches_by_rank"])},
+                   **{"tp_{}_eval_rank{}".format(w, r): counts.get(name, 0)
+                      for w, res in tp_runs.items()
+                      for r, counts in enumerate(
+                          res["eval_launches_by_rank"])}}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -4725,6 +5204,10 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
         if name in ("bilstm_recurrence_train", "bilstm_bwd"):
             entry["third_batch"] = tres[name][KERNEL_TRAIN_BATCHES[2]]
             entry["narrow"] = tres[name]["narrow"]
+        if name in tp["onedir"]:
+            entry["narrow"] = tp["onedir"][name]["narrow"]
+        if name == "bilstm_bwd_onedir":
+            entry["tensor_parallel"] = tp
         if name == "bilstm_bwd":
             entry["narrow_training"] = {k: narrow[k] for k in (
                 "model", "B", "T", "losses", "step_ms", "frames_per_s")}

@@ -15,17 +15,20 @@
 // arrive in float32 or bf16.  dz leaves in float32; the weight and
 // input gradients are GEMMs outside this kernel.
 //
-// Layout (the JAX package's time-major layout, R = 2*Bp rows
+// Layout (the JAX package's time-major layout, R = ndir*Bp rows
 // [fwd Bp | bwd Bp]):
 //   a      (T, R, 4F) float32 or bf16
 //   c      (T, R, F) same type; c_{t-1} is read from it (zero at t = 0)
 //   gout   (T, R, F) same type, the upstream cotangent dL/dh
-//   wh     (2F, 4F) bf16 = vstack(Wh_fwd, Wh_bwd)
+//   wh     (ndir*F, 4F) bf16 = vstack(Wh_fwd, Wh_bwd)
 //   dz     (T, R, 4F) float32 out
 //   dzbuf  bf16 scratch of at least 2 x R x 6F: dz_{t+1} / dz_t,
 //          double-buffered, chunk-major (below)
-//   bar    two zeroed uint32 arrival counters, 128 bytes apart (one per
+//   bar    ndir zeroed uint32 arrival counters, 128 bytes apart (one per
 //          direction)
+// ndir is 2 (both directions), or 1: one direction's instance (ndir*F/8
+// blocks), which a tensor-parallel rank launches on its direction's rows
+// and Wh; its dz is that half of the two-direction launch's bit for bit.
 //
 // What bounds it: the T sequential steps, not bytes or operations.  A
 // step's product is small (2*Bp x 4F x F), but every block of a
@@ -202,7 +205,8 @@ bilstm_bwd_kernel(const ResT* __restrict__ a, const ResT* __restrict__ c,
                   const ResT* __restrict__ gout,
                   const __nv_bfloat16* __restrict__ wh,
                   float* __restrict__ dz, __nv_bfloat16* dzbuf,
-                  unsigned int* bar, int T, int Bp, int F, int KC) {
+                  unsigned int* bar, int T, int Bp, int F, int KC,
+                  int ndir) {
   // (row, unit) pairs a thread updates; the first PRE of them have their
   // residuals loaded a step ahead.
   constexpr int PAIRS = (MT * 16 * UNITS + THREADS - 1) / THREADS;
@@ -220,7 +224,7 @@ bilstm_bwd_kernel(const ResT* __restrict__ a, const ResT* __restrict__ c,
   const int d = blockIdx.x / groups;
   const int u0 = (blockIdx.x - d * groups) * UNITS;
   const int uu = tid % UNITS;         // this thread's unit in every pair
-  const int R = 2 * Bp;
+  const int R = ndir * Bp;
   const int G = 4 * F;
   unsigned int* const counter = bar + d * BAR_STRIDE;
   const int w_pitch = 2 * G + 16;     // bytes a Wh row
@@ -426,10 +430,10 @@ bilstm_bwd_kernel(const ResT* __restrict__ a, const ResT* __restrict__ c,
   if (T > 1) load_res_ahead(T - 2, true);
   for (int s = 0; s < T; ++s) {
     const int t = T - 1 - s;
-    if (s > 0) product(dzbuf + ((s + 1) & 1) * 2 * nc * chunk_elems);
+    if (s > 0) product(dzbuf + ((s + 1) & 1) * ndir * nc * chunk_elems);
     gates(s > 0, t);
     const bool last = s + 1 == T;
-    if (!last) store_exchange(dzbuf + (s & 1) * 2 * nc * chunk_elems);
+    if (!last) store_exchange(dzbuf + (s & 1) * ndir * nc * chunk_elems);
     if (!last) idt::group_arrive(counter);
     store_dz(t);
     if (last) break;
@@ -442,7 +446,7 @@ bilstm_bwd_kernel(const ResT* __restrict__ a, const ResT* __restrict__ c,
 template <int MT, typename ResT>
 int launch_tiles(const void* a, const void* c, const void* gout,
                  const void* wh, void* dz, void* dzbuf, void* bar, int T,
-                 int Bp, int F, int KC, cudaStream_t stream) {
+                 int Bp, int F, int KC, int ndir, cudaStream_t stream) {
   const ResT* a_ = static_cast<const ResT*>(a);
   const ResT* c_ = static_cast<const ResT*>(c);
   const ResT* g_ = static_cast<const ResT*>(gout);
@@ -451,20 +455,21 @@ int launch_tiles(const void* a, const void* c, const void* gout,
   __nv_bfloat16* dzbuf_ = static_cast<__nv_bfloat16*>(dzbuf);
   unsigned int* bar_ = static_cast<unsigned int*>(bar);
   void* args[] = {&a_, &c_, &g_, &wh_, &dz_, &dzbuf_, &bar_,
-                  &T,  &Bp, &F,  &KC};
+                  &T,  &Bp, &F,  &KC,    &ndir};
   return static_cast<int>(idt::launch_persistent(
-      bilstm_bwd_kernel<MT, ResT>, 2 * (F / UNITS), THREADS,
+      bilstm_bwd_kernel<MT, ResT>, ndir * (F / UNITS), THREADS,
       smem_bytes(Bp, F, KC), args, bar_, stream,
-      2 * BAR_STRIDE * sizeof(unsigned int)));
+      ndir * BAR_STRIDE * sizeof(unsigned int)));
 }
 
 template <typename ResT>
 int launch(const void* a, const void* c, const void* gout, const void* wh,
-           void* dz, void* dzbuf, void* bar, int T, int Bp, int F,
+           void* dz, void* dzbuf, void* bar, int T, int Bp, int F, int ndir,
            cudaStream_t stream) {
   // F a multiple of 16: whole k-steps, 16-byte rows of a gate's 8 units.
-  // F at most 4 x the SMs (528 on 132): the widths whose recurrence
-  // (bilstm_recurrence.cu, 2F/8 blocks of one SM each) can be co-resident,
+  // ndir*F at most 8 x the SMs (F = 528 on 132 SMs with both
+  // directions): the widths whose recurrence (bilstm_recurrence.cu,
+  // ndir*F/8 blocks of one SM each) can be co-resident,
   // so that the backward takes what the training forward takes.  Beyond
   // that, what shared memory admits; launch_persistent refuses the rest.
   const uintptr_t align = reinterpret_cast<uintptr_t>(wh) |
@@ -472,7 +477,7 @@ int launch(const void* a, const void* c, const void* gout, const void* wh,
                           reinterpret_cast<uintptr_t>(dzbuf) |
                           reinterpret_cast<uintptr_t>(bar);
   if (T <= 0 || Bp <= 0 || F <= 0 || F % 16 != 0 || F % UNITS != 0 ||
-      Bp > 16 * MT_MAX || align % 16 != 0)
+      Bp > 16 * MT_MAX || (ndir != 1 && ndir != 2) || align % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, max_smem = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -480,7 +485,7 @@ int launch(const void* a, const void* c, const void* gout, const void* wh,
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (F > 4 * sms)
+  if (ndir * F > 8 * sms)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   // The fewest chunks (at least STAGES, so that a whole dz that fits is
   // one round of copies) whose ring fits: KC = 4F / n, a multiple of 16.
@@ -494,28 +499,29 @@ int launch(const void* a, const void* c, const void* gout, const void* wh,
   const int mt = (Bp + 15) / 16;
   if (mt <= 1)
     return launch_tiles<1, ResT>(a, c, gout, wh, dz, dzbuf, bar, T, Bp, F,
-                                 KC, stream);
+                                 KC, ndir, stream);
   if (mt <= 2)
     return launch_tiles<2, ResT>(a, c, gout, wh, dz, dzbuf, bar, T, Bp, F,
-                                 KC, stream);
+                                 KC, ndir, stream);
   if (mt <= 4)
     return launch_tiles<4, ResT>(a, c, gout, wh, dz, dzbuf, bar, T, Bp, F,
-                                 KC, stream);
+                                 KC, ndir, stream);
   if (mt <= 8)
     return launch_tiles<8, ResT>(a, c, gout, wh, dz, dzbuf, bar, T, Bp, F,
-                                 KC, stream);
+                                 KC, ndir, stream);
   return launch_tiles<16, ResT>(a, c, gout, wh, dz, dzbuf, bar, T, Bp, F,
-                                KC, stream);
+                                KC, ndir, stream);
 }
 
 }  // namespace
 
 extern "C" int idt_bilstm_bwd(const void* a, const void* c, const void* gout,
                               const void* wh, void* dz, void* dzbuf,
-                              void* bar, int T, int Bp, int F, int res_bf16,
-                              cudaStream_t stream) {
+                              void* bar, int T, int Bp, int F, int ndir,
+                              int res_bf16, cudaStream_t stream) {
   if (res_bf16)
     return launch<__nv_bfloat16>(a, c, gout, wh, dz, dzbuf, bar, T, Bp, F,
-                                 stream);
-  return launch<float>(a, c, gout, wh, dz, dzbuf, bar, T, Bp, F, stream);
+                                 ndir, stream);
+  return launch<float>(a, c, gout, wh, dz, dzbuf, bar, T, Bp, F, ndir,
+                       stream);
 }

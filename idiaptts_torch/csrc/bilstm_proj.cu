@@ -10,10 +10,15 @@
 // bilstm_recurrence.cu, launched right after this one.
 //
 // Layout (the JAX package's time-major layer layout):
-//   xin  (T, R, K) bf16, R = 2*Bp rows per step: [fwd Bp | bwd Bp]
-//   wx   (2, K, N) bf16, N = 4F, row-major per direction
-//   b    (2, N) float32
+//   xin  (T, R, K) bf16, R = ndir*Bp rows per step: [fwd Bp | bwd Bp]
+//   wx   (ndir, K, N) bf16, N = 4F, row-major per direction
+//   b    (ndir, N) float32
 //   xp   (T, R, N) float32
+// ndir is 2 (both directions), or 1: one direction's instance, which a
+// tensor-parallel rank launches on its direction's rows and weights.  Its
+// tiles are the two-direction launch's tiles of that direction, with the
+// same arithmetic, so its xp is that half of the two-direction xp bit for
+// bit.
 // Per direction this is one (T*Bp, K) x (K, N) GEMM whose row m = (t, r)
 // lives at xin row t*R + d*Bp + r.
 //
@@ -42,7 +47,7 @@
 //
 // The strided A rows: one direction's rows are Bp rows of every step, so
 // no 2-D box covers them.  A is loaded by TMA through a 4-D tensor map
-// over (K, Bp, direction, T) (strides 2K, 2*Bp*K and 4*Bp*K bytes): a box
+// over (K, Bp, direction, T) (strides 2K, 2*Bp*K and 2*ndir*Bp*K bytes): a box
 // of 64 x BR x 1 x BT lands in shared memory as BR*BT dense 128-byte rows
 // in (t, r) order, which is the K-major operand wgmma reads.  BR divides
 // Bp (or is BM when Bp > BM) and is chosen to fill the most of the BM
@@ -91,7 +96,7 @@ constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) + STAGING +
                            (2 * STAGES + 2) * 8 + 1024;
 
 struct Tiling {
-  int T, Bp, N;
+  int T, Bp, N, ndir;
   int BR, BT;                  // A box: BR rows of each of BT steps
   int r_tiles, m_tiles, n_tiles, k_blocks, tiles;
 };
@@ -324,7 +329,7 @@ bilstm_proj_kernel(const __grid_constant__ CUtensorMap a_map,
     }
     return;
   }
-  const int R = 2 * s.Bp;
+  const int R = s.ndir * s.Bp;
   if (threadIdx.x >= STORER0) {
     // Storers: the tile's bf16 products plus the bias, as float4 rows
     // (one 512-byte row segment a warp store), while the consumers run
@@ -469,10 +474,11 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, cuuint32_t rank,
 
 extern "C" int idt_bilstm_proj(const void* xin, const void* wx,
                                const void* bias, void* xp, int T, int Bp,
-                               int K, int N, cudaStream_t stream) {
+                               int K, int N, int ndir, cudaStream_t stream) {
   // TMA needs 16-byte aligned bases and strides (K, N multiples of 8);
   // the storers' float4 accesses need 16-byte aligned bias and xp.
   if (T <= 0 || Bp <= 0 || K <= 0 || N <= 0 || K % 8 != 0 || N % 8 != 0 ||
+      (ndir != 1 && ndir != 2) ||
       reinterpret_cast<uintptr_t>(xin) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wx) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(bias) % 16 != 0 ||
@@ -485,6 +491,7 @@ extern "C" int idt_bilstm_proj(const void* xin, const void* wx,
   s.T = T;
   s.Bp = Bp;
   s.N = N;
+  s.ndir = ndir;
   // A tile holds BT steps of BR rows; BR divides Bp (or is BM when Bp >
   // BM) and is the one that fills most of the BM rows.
   s.BR = BM;
@@ -499,7 +506,7 @@ extern "C" int idt_bilstm_proj(const void* xin, const void* wx,
       static_cast<long long>((T + s.BT - 1) / s.BT) * s.r_tiles;
   s.n_tiles = (N + BN - 1) / BN;
   s.k_blocks = (K + BK - 1) / BK;
-  const long long tiles = 2 * m_tiles * s.n_tiles;
+  const long long tiles = ndir * m_tiles * s.n_tiles;
   if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   s.m_tiles = static_cast<int>(m_tiles);
   s.tiles = static_cast<int>(tiles);
@@ -508,13 +515,15 @@ extern "C" int idt_bilstm_proj(const void* xin, const void* wx,
   CUtensorMap a_map, b_map;
   const cuuint64_t k2 = static_cast<cuuint64_t>(K) * 2;
   const cuuint64_t a_dims[4] = {static_cast<cuuint64_t>(K),
-                                static_cast<cuuint64_t>(Bp), 2,
+                                static_cast<cuuint64_t>(Bp),
+                                static_cast<cuuint64_t>(ndir),
                                 static_cast<cuuint64_t>(T)};
-  const cuuint64_t a_strides[3] = {k2, k2 * Bp, k2 * 2 * Bp};
+  const cuuint64_t a_strides[3] = {k2, k2 * Bp, k2 * ndir * Bp};
   const cuuint32_t a_box[4] = {BK, static_cast<cuuint32_t>(s.BR), 1,
                                static_cast<cuuint32_t>(s.BT)};
   const cuuint64_t b_dims[3] = {static_cast<cuuint64_t>(N),
-                                static_cast<cuuint64_t>(K), 2};
+                                static_cast<cuuint64_t>(K),
+                                static_cast<cuuint64_t>(ndir)};
   const cuuint64_t b_strides[2] = {static_cast<cuuint64_t>(N) * 2,
                                    static_cast<cuuint64_t>(N) * 2 * K};
   const cuuint32_t b_box[3] = {64, BK, 1};

@@ -20,14 +20,18 @@
 // bit-identical to inference-mode h on the same inputs.
 //
 // Layout (the JAX package's time-major layout):
-//   xp     (T, R, 4F) float32, R = 2*Bp rows: [fwd Bp | bwd Bp]
-//   wh     (2F, 4F) bf16 = vstack(Wh_fwd, Wh_bwd)
+//   xp     (T, R, 4F) float32, R = ndir*Bp rows: [fwd Bp | bwd Bp]
+//   wh     (ndir*F, 4F) bf16 = vstack(Wh_fwd, Wh_bwd)
 //   out    (T, R, F) float32 hidden states
 //   a      (T, R, 4F) float32 or bf16 gates (training mode only)
 //   c      (T, R, F) float32 or bf16 cells (training mode only)
 //   hbuf   (2, R, F) bf16 scratch: h_{t-1} / h_t, double-buffered
-//   bar    two zeroed uint32 arrival counters, 128 bytes apart (one per
+//   bar    ndir zeroed uint32 arrival counters, 128 bytes apart (one per
 //          direction)
+// ndir is 2 (both directions), or 1: one direction's instance (ndir*F/8
+// blocks), which a tensor-parallel rank launches on its direction's rows
+// and Wh.  Its blocks do the arithmetic of that direction's blocks in the
+// two-direction launch, so its outputs are that half bit for bit.
 //
 // What bounds it: the T sequential steps, not bytes or operations.  A
 // step is a small GEMM (2*Bp x F x 4F: 25 MFLOP at Bp = 6, 201 MFLOP at
@@ -146,7 +150,8 @@ bilstm_recurrence_kernel(const float* __restrict__ xp,
                          const __nv_bfloat16* __restrict__ wh,
                          float* __restrict__ out, ResT* __restrict__ a_out,
                          ResT* __restrict__ c_out, __nv_bfloat16* hbuf,
-                         unsigned int* bar, int T, int Bp, int F) {
+                         unsigned int* bar, int T, int Bp, int F,
+                         int ndir) {
   extern __shared__ uint8_t smem_raw[];
   // The Wh slice, then MT m-tiles of h, each as KB k-blocks; 1024-byte
   // aligned, as the swizzle repeats every 8 rows.
@@ -159,7 +164,7 @@ bilstm_recurrence_kernel(const float* __restrict__ xp,
   const int groups = F / UNITS;      // blocks a direction
   const int d = blockIdx.x / groups;
   const int u0 = (blockIdx.x - d * groups) * UNITS;
-  const int R = 2 * Bp;
+  const int R = ndir * Bp;
   const int G = 4 * F;
   unsigned int* const counter = bar + d * BAR_STRIDE;
 
@@ -348,7 +353,7 @@ bilstm_recurrence_kernel(const float* __restrict__ xp,
 template <int MT, bool TRAIN, typename ResT>
 int launch_tiles(const void* xp, const void* wh, void* out, void* a,
                  void* c, void* hbuf, void* bar, int T, int Bp, int F,
-                 cudaStream_t stream) {
+                 int ndir, cudaStream_t stream) {
   const float* xp_ = static_cast<const float*>(xp);
   const __nv_bfloat16* wh_ = static_cast<const __nv_bfloat16*>(wh);
   float* out_ = static_cast<float*>(out);
@@ -356,21 +361,23 @@ int launch_tiles(const void* xp, const void* wh, void* out, void* a,
   ResT* c_ = static_cast<ResT*>(c);
   __nv_bfloat16* hbuf_ = static_cast<__nv_bfloat16*>(hbuf);
   unsigned int* bar_ = static_cast<unsigned int*>(bar);
-  void* args[] = {&xp_, &wh_, &out_, &a_, &c_, &hbuf_, &bar_, &T, &Bp, &F};
+  void* args[] = {&xp_, &wh_, &out_, &a_,  &c_, &hbuf_,
+                  &bar_, &T,  &Bp,   &F, &ndir};
   const size_t kb = static_cast<size_t>((F + 63) / 64);
   const size_t smem = 1024 + kb * (B_BLOCK + MT * A_BLOCK);
   return static_cast<int>(idt::launch_persistent(
-      bilstm_recurrence_kernel<MT, TRAIN, ResT>, 2 * (F / UNITS), THREADS,
-      smem, args, bar_, stream, 2 * BAR_STRIDE * sizeof(unsigned int)));
+      bilstm_recurrence_kernel<MT, TRAIN, ResT>, ndir * (F / UNITS),
+      THREADS, smem, args, bar_, stream,
+      ndir * BAR_STRIDE * sizeof(unsigned int)));
 }
 
 template <bool TRAIN, typename ResT>
 int launch(const void* xp, const void* wh, void* out, void* a, void* c,
-           void* hbuf, void* bar, int T, int Bp, int F,
+           void* hbuf, void* bar, int T, int Bp, int F, int ndir,
            cudaStream_t stream) {
   // F a multiple of 16: whole wgmma k steps, 16-byte rows of h and of a
   // gate's 8 units.  Beyond that, what the shared memory (Wh slice + m
-  // tiles) and co-residency (2F/8 blocks) admit; launch_persistent
+  // tiles) and co-residency (ndir*F/8 blocks) admit; launch_persistent
   // refuses the rest.
   const uintptr_t align = reinterpret_cast<uintptr_t>(xp) |
                           reinterpret_cast<uintptr_t>(wh) |
@@ -380,21 +387,21 @@ int launch(const void* xp, const void* wh, void* out, void* a, void* c,
                           reinterpret_cast<uintptr_t>(hbuf) |
                           reinterpret_cast<uintptr_t>(bar);
   if (T <= 0 || Bp <= 0 || F <= 0 || F % 16 != 0 || Bp > 64 * MT_MAX ||
-      align % 16 != 0)
+      (ndir != 1 && ndir != 2) || align % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch ((Bp + 63) / 64) {
     case 1:
       return launch_tiles<1, TRAIN, ResT>(xp, wh, out, a, c, hbuf, bar, T,
-                                          Bp, F, stream);
+                                          Bp, F, ndir, stream);
     case 2:
       return launch_tiles<2, TRAIN, ResT>(xp, wh, out, a, c, hbuf, bar, T,
-                                          Bp, F, stream);
+                                          Bp, F, ndir, stream);
     case 3:
       return launch_tiles<3, TRAIN, ResT>(xp, wh, out, a, c, hbuf, bar, T,
-                                          Bp, F, stream);
+                                          Bp, F, ndir, stream);
     default:
       return launch_tiles<4, TRAIN, ResT>(xp, wh, out, a, c, hbuf, bar, T,
-                                          Bp, F, stream);
+                                          Bp, F, ndir, stream);
   }
 }
 
@@ -402,18 +409,20 @@ int launch(const void* xp, const void* wh, void* out, void* a, void* c,
 
 extern "C" int idt_bilstm_recurrence(const void* xp, const void* wh,
                                      void* out, void* hbuf, void* bar, int T,
-                                     int Bp, int F, cudaStream_t stream) {
+                                     int Bp, int F, int ndir,
+                                     cudaStream_t stream) {
   return launch<false, float>(xp, wh, out, nullptr, nullptr, hbuf, bar, T,
-                              Bp, F, stream);
+                              Bp, F, ndir, stream);
 }
 
 extern "C" int idt_bilstm_recurrence_train(const void* xp, const void* wh,
                                            void* out, void* a, void* c,
                                            void* hbuf, void* bar, int T,
-                                           int Bp, int F, int res_bf16,
-                                           cudaStream_t stream) {
+                                           int Bp, int F, int ndir,
+                                           int res_bf16, cudaStream_t stream) {
   if (res_bf16)
     return launch<true, __nv_bfloat16>(xp, wh, out, a, c, hbuf, bar, T, Bp,
-                                       F, stream);
-  return launch<true, float>(xp, wh, out, a, c, hbuf, bar, T, Bp, F, stream);
+                                       F, ndir, stream);
+  return launch<true, float>(xp, wh, out, a, c, hbuf, bar, T, Bp, F, ndir,
+                             stream);
 }

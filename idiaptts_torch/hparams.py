@@ -276,7 +276,7 @@ class ExtendedHParams:
             # -- device --------------------------------------------------
             use_gpu=False,           # kept for API compat
             num_devices=1,           # > 1: data-parallel ranks
-            model_parallel=1,        # > 1 (tensor parallel) raises
+            model_parallel=1,        # > 1: tensor-parallel model groups
             use_shard_map="auto",    # accepted; no effect in the port
             mesh_shape=None,         # accepted; no effect in the port
             data_axis="data",

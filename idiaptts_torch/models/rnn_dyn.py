@@ -52,6 +52,20 @@ Numerics follow the JAX model:
   active at inference too, so it needs one there as well.
 - The model output is float32.
 
+Tensor parallelism (``parallel/mesh.py``'s ``shard_module``) shards two
+layers over the model group of a ``(data, model)`` mesh:
+
+- a Dense layer is column-parallel: its input enters through
+  ``copy_to_model`` (its gradient summed over the group), the rank's
+  kernel columns make a local bf16 ``torch.matmul``, the group gathers
+  the columns, and the replicated bias is added to the whole, as the JAX
+  layer adds it;
+- a BiLSTM layer is split by direction: model rank r runs direction
+  r % 2 on row block r // 2 of the batch (the backward direction's rank
+  builds its reversed input with ``masked_flip``) through the kernels'
+  one-direction instances, and the group gathers ``[out_f | out_b]``.
+  No collective runs inside the recurrence.
+
 Parameter names mirror the flax tree (``g0_Linear_0.kernel``,
 ``g2_LSTM.bi0.Wx``, ``g1_GRU.fwd0.ir.kernel``, ``emb_0.embedding``) and
 BatchNorm's running averages are the buffers ``<group>.mean`` and
@@ -71,6 +85,8 @@ from torch.utils.checkpoint import checkpoint
 from idiaptts_torch.models.config import ModelConfig
 from idiaptts_torch.models.named import NamedForwardWrapper
 from idiaptts_torch.ops.cuda_lstm import BiLSTMLayerFn, bilstm_layer_tmajor
+from idiaptts_torch.parallel.mesh import (all_reduce_sum, copy_to_model,
+                                          direction_rows, gather_from_model)
 
 IDENTIFIER = "RNNDYN"
 
@@ -209,7 +225,11 @@ class _Dense(nn.Module):
     """``flax.linen.Dense``: (in, out) kernel.  In bf16 by default
     (``dtype=bfloat16``); ``dtype=None`` computes in float32, as flax
     does for a float32 kernel.  The kernel is drawn lecun_normal, or
-    orthogonal for a recurrent cell's ``h`` layers."""
+    orthogonal for a recurrent cell's ``h`` layers.  With ``model_mesh``
+    (set by ``shard_module``) the kernel is this rank's columns and the
+    layer is column-parallel."""
+
+    model_mesh = None
 
     def __init__(self, in_dim, out_dim, bias=True, dtype=torch.bfloat16,
                  orthogonal=False):
@@ -233,7 +253,16 @@ class _Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
+        mesh = self.model_mesh
+        if mesh is not None:
+            x = copy_to_model(x, mesh)
         y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        if mesh is not None:
+            cols = y.shape[-1]
+            start = mesh.model.rank * cols
+            y = gather_from_model(
+                y, mesh, y.shape[:-1] + (cols * mesh.model.size,),
+                (Ellipsis, slice(start, start + cols)))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -242,7 +271,12 @@ class _Dense(nn.Module):
 class _BiFastLSTM(nn.Module):
     """Both directions of one BiLSTM layer: per-direction ``Wx (2, D,
     4F)``, ``Wh (2, F, 4F)`` and ``b (2, 4F)``; forget-gate bias +1 and
-    gate order [i, f, g, o] are in the kernel."""
+    gate order [i, f, g, o] are in the kernel.  With ``model_mesh`` (set
+    by ``shard_module``) the parameters are this rank's direction,
+    ``(1, D, 4F)``, ``(1, F, 4F)`` and ``(1, 4F)``, and
+    :meth:`forward_sharded` runs the layer."""
+
+    model_mesh = None
 
     def __init__(self, in_dim, features):
         super().__init__()
@@ -276,6 +310,35 @@ class _BiFastLSTM(nn.Module):
             hs = bilstm_layer_tmajor(xin_t, self.Wx, wh_cat, self.b)
         hs = hs.reshape(T, 2, B, F_)
         return hs[:, 0].transpose(0, 1), hs[:, 1].transpose(0, 1)
+
+    def forward_sharded(self, x, lengths=None, training=False,
+                        residuals_bf16=False):
+        """The layer split by direction over the model group: this rank's
+        direction on its row block (``direction_rows``) through the
+        one-direction kernels, its output (the backward direction's
+        flipped back) gathered into ``[out_f | out_b]`` (B, T, 2F)
+        float32 on every rank of the group."""
+        mesh = self.model_mesh
+        B, T, _ = x.shape
+        F_ = self.features
+        d, lo, hi, gives = direction_rows(B, mesh)
+        x = copy_to_model(x, mesh)[lo:hi]
+        rows = lengths[lo:hi] if lengths is not None else None
+        if d == 1:
+            x = masked_flip(x, rows) if rows is not None else x.flip(1)
+        xin_t = x.to(torch.bfloat16).transpose(0, 1).contiguous()
+        if training and torch.is_grad_enabled():
+            hs = BiLSTMLayerFn.apply(xin_t, self.Wx, self.Wh[0], self.b,
+                                     residuals_bf16)
+        else:
+            hs = bilstm_layer_tmajor(xin_t, self.Wx, self.Wh[0], self.b)
+        out = hs.transpose(0, 1)
+        if d == 1:
+            out = masked_flip(out, rows) if rows is not None \
+                else out.flip(1)
+        index = (slice(lo, hi), slice(None), slice(d * F_, (d + 1) * F_)) \
+            if gives else None
+        return gather_from_model(out, mesh, (B, T, 2 * F_), index)
 
 
 class _FastLSTM(nn.Module):
@@ -446,8 +509,10 @@ class _MaskedFlipRNN(nn.Module):
     def forward(self, x, lengths=None, training=False, generator=None,
                 residuals_bf16=False):
         for layer in range(self.num_layers):
-            if self.cell_type == "LSTM" and self.bidirectional:
-                bi = getattr(self, "bi{}".format(layer))
+            bi = getattr(self, "bi{}".format(layer), None)
+            if bi is not None and bi.model_mesh is not None:
+                x = bi.forward_sharded(x, lengths, training, residuals_bf16)
+            elif bi is not None:
                 x_rev = masked_flip(x, lengths) if lengths is not None \
                     else x.flip(1)
                 out_f, out_b_rev = bi(x, x_rev, training, residuals_bf16)
@@ -552,7 +617,12 @@ class _Conv1d(nn.Module):
 
 class _BatchNorm(nn.Module):
     """``flax.linen.BatchNorm(axis=-1)``: parameters ``scale`` and
-    ``bias``, running averages ``mean`` and ``var`` as buffers."""
+    ``bias``, running averages ``mean`` and ``var`` as buffers.  With
+    ``data_mesh`` set (a tensor-parallel step whose batch shards over the
+    data group) the batch statistics are those of the data group's rows,
+    as the JAX tensor-parallel step (GSPMD) computes them."""
+
+    data_mesh = None
 
     def __init__(self, dim, momentum=0.99, epsilon=1e-5):
         super().__init__()
@@ -574,8 +644,12 @@ class _BatchNorm(nn.Module):
         if training:
             xf = x.to(torch.float32)
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, msq = xf.mean(axes), (xf * xf).mean(axes)
+            if self.data_mesh is not None:
+                mean, msq = (all_reduce_sum(torch.stack([mean, msq]),
+                                            self.data_mesh)
+                             / self.data_mesh.size).unbind()
+            var = torch.clamp(msq - mean * mean, min=0.0)
             if update_stats:
                 with torch.no_grad():
                     m = self.momentum

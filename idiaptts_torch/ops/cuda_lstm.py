@@ -26,7 +26,13 @@ Replaces, from ``idiaptts_tpu/ops/pallas_lstm.py``:
 
 The public layouts are the JAX package's time-major ones: rows are
 ``[fwd Bp | bwd Bp]`` with the backward direction pre-reversed by
-``masked_flip``.  Numerics as ``pallas_lstm.py``: bf16 matmul operands
+``masked_flip``.  Every function also takes one direction alone: the
+number of directions ``ndir`` (1 or 2) is read from the weights (``Wx``
+(ndir, D, 4F), ``wh_cat`` (ndir*F, 4F), ``b`` (ndir, 4F)), and the rows
+are then ``ndir*Bp``.  A tensor-parallel rank that holds one direction
+launches the kernels' one-direction instances (their own launch
+counters, ``*_onedir``), whose results on a direction's inputs are that
+direction's half of the two-direction launch bit for bit.  Numerics as ``pallas_lstm.py``: bf16 matmul operands
 with float32 accumulation, the input projection rounded to bf16 before
 the bias, forget-gate bias +1, gate order [i, f, g, o], float32 state.
 """
@@ -37,18 +43,45 @@ import torch
 
 from idiaptts_torch.ops import dispatch
 
-PROJECTION = dispatch.Kernel(
-    "bilstm_proj", "idt_bilstm_proj",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
-RECURRENCE = dispatch.Kernel(
-    "bilstm_recurrence", "idt_bilstm_recurrence",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3)
-RECURRENCE_TRAIN = dispatch.Kernel(
-    "bilstm_recurrence_train", "idt_bilstm_recurrence_train",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
-BACKWARD = dispatch.Kernel(
-    "bilstm_bwd", "idt_bilstm_bwd",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4)
+_ARGS = {"idt_bilstm_proj": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5,
+         "idt_bilstm_recurrence": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4,
+         "idt_bilstm_recurrence_train": ([ctypes.c_void_p] * 7
+                                         + [ctypes.c_int] * 5),
+         "idt_bilstm_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5}
+
+
+def _instances(name, symbol):
+    """The two-direction kernel and its one-direction instance: one C
+    entry point (``ndir`` is its argument), two launch counters."""
+    return (dispatch.Kernel(name, symbol, _ARGS[symbol]),
+            dispatch.Kernel(name + "_onedir", symbol, _ARGS[symbol]))
+
+
+PROJECTION, PROJECTION_ONEDIR = _instances("bilstm_proj", "idt_bilstm_proj")
+RECURRENCE, RECURRENCE_ONEDIR = _instances("bilstm_recurrence",
+                                           "idt_bilstm_recurrence")
+RECURRENCE_TRAIN, RECURRENCE_TRAIN_ONEDIR = _instances(
+    "bilstm_recurrence_train", "idt_bilstm_recurrence_train")
+BACKWARD, BACKWARD_ONEDIR = _instances("bilstm_bwd", "idt_bilstm_bwd")
+_ONEDIR = {PROJECTION: PROJECTION_ONEDIR, RECURRENCE: RECURRENCE_ONEDIR,
+           RECURRENCE_TRAIN: RECURRENCE_TRAIN_ONEDIR,
+           BACKWARD: BACKWARD_ONEDIR}
+
+
+def _launch(kernel, ndir, device, *args):
+    """Launch ``kernel``, or its one-direction instance when ``ndir`` is 1
+    (``ndir`` is also the C entry point's argument after the shape
+    arguments, before ``res_bf16``)."""
+    (kernel if ndir == 2 else _ONEDIR[kernel])(device, *args)
+
+
+def _ndir(wh_cat, F):
+    """The number of directions of a (ndir*F, 4F) ``wh_cat``."""
+    ndir = wh_cat.shape[0] // F if F else 0
+    if ndir not in (1, 2) or wh_cat.shape[0] != ndir * F:
+        raise ValueError("wh_cat must be (F, 4F) or (2F, 4F) for F={}, got "
+                         "{}".format(F, tuple(wh_cat.shape)))
+    return ndir
 
 
 def _bf16_exact(x):
@@ -63,15 +96,16 @@ def _bf16_exact(x):
 def _recurrence_plain(xp_t, wh_cat, residuals):
     T, R, G = xp_t.shape
     F = G // 4
-    Bp = R // 2
-    wh = _bf16_exact(wh_cat).reshape(2, F, G)
-    xp = xp_t.reshape(T, 2, Bp, G)
-    h = torch.zeros(2, Bp, F, dtype=torch.float32, device=xp_t.device)
+    ndir = _ndir(wh_cat, F)
+    Bp = R // ndir
+    wh = _bf16_exact(wh_cat).reshape(ndir, F, G)
+    xp = xp_t.reshape(T, ndir, Bp, G)
+    h = torch.zeros(ndir, Bp, F, dtype=torch.float32, device=xp_t.device)
     c = torch.zeros_like(h)
-    out = torch.empty(T, 2, Bp, F, dtype=torch.float32,
+    out = torch.empty(T, ndir, Bp, F, dtype=torch.float32,
                       device=xp_t.device)
     if residuals:
-        gates_out = torch.empty(T, 2, Bp, G, dtype=torch.float32,
+        gates_out = torch.empty(T, ndir, Bp, G, dtype=torch.float32,
                                 device=xp_t.device)
         cells = torch.empty_like(out)
     for t in range(T):
@@ -94,8 +128,9 @@ def _recurrence_plain(xp_t, wh_cat, residuals):
 def recurrence_tmajor_plain(xp_t, wh_cat):
     """Plain recurrence (the role of ``pallas_lstm._scan_tmajor``).
 
-    xp_t: (T, 2*Bp, 4F) float32; wh_cat: (2F, 4F) = vstack(W_f, W_b).
-    Returns (T, 2*Bp, F) float32 hidden states."""
+    xp_t: (T, 2*Bp, 4F) float32; wh_cat: (2F, 4F) = vstack(W_f, W_b)
+    (one direction: (T, Bp, 4F) and (F, 4F)).  Returns (T, 2*Bp, F)
+    float32 hidden states."""
     return _recurrence_plain(xp_t, wh_cat, residuals=False)
 
 
@@ -122,11 +157,12 @@ def dz_bwd_tmajor_plain(a, c, gout, wh_cat):
     bf16(dz) . Wh_d^T with float32 accumulation."""
     T, R, G = a.shape
     F = G // 4
-    Bp = R // 2
+    ndir = _ndir(wh_cat, F)
+    Bp = R // ndir
     a32 = a.to(torch.float32)
     c32 = c.to(torch.float32)
     g32 = gout.to(a.dtype).to(torch.float32)
-    wh_t = _bf16_exact(wh_cat).reshape(2, F, G).transpose(1, 2)
+    wh_t = _bf16_exact(wh_cat).reshape(ndir, F, G).transpose(1, 2)
     dh = torch.zeros(R, F, dtype=torch.float32, device=a.device)
     dc = torch.zeros_like(dh)
     dz = torch.empty(T, R, G, dtype=torch.float32, device=a.device)
@@ -142,7 +178,7 @@ def dz_bwd_tmajor_plain(a, c, gout, wh_cat):
                          dh_tot * tc * (o * (1.0 - o))], dim=-1)
         dc = dc * f
         dz[t] = dzt
-        dh = torch.bmm(_bf16_exact(dzt).reshape(2, Bp, G),
+        dh = torch.bmm(_bf16_exact(dzt).reshape(ndir, Bp, G),
                        wh_t).reshape(R, F)
     return dz
 
@@ -162,11 +198,12 @@ def bilstm_recurrence_scan(x_proj, wh):
 def projection_tmajor_plain(xin_t, wx, b):
     """Plain input projection: bf16(xin . Wx[d]) + b[d] per direction.
 
-    xin_t: (T, 2*Bp, D) bf16; wx: (2, D, 4F); b: (2, 4F).  Returns
-    (T, 2*Bp, 4F) float32."""
+    xin_t: (T, ndir*Bp, D) bf16; wx: (ndir, D, 4F); b: (ndir, 4F).
+    Returns (T, ndir*Bp, 4F) float32."""
     T, R, D = xin_t.shape
-    Bp = R // 2
-    x = _bf16_exact(xin_t).reshape(T, 2, Bp, D)
+    ndir = wx.shape[0]
+    Bp = R // ndir
+    x = _bf16_exact(xin_t).reshape(T, ndir, Bp, D)
     m = torch.einsum("tdbc,dcg->tdbg", x, _bf16_exact(wx))
     xp = _bf16_exact(m) + b.to(torch.float32)[None, :, None, :]
     return xp.reshape(T, R, -1)
@@ -181,15 +218,16 @@ def scan_layer_tmajor(xin_t, wx, wh_cat, b):
 
 # -- dispatching wrappers -------------------------------------------------
 
-def _gates_shape(x, name):
-    """(T, R, G, F) of a (T, 2*Bp, 4F) gate-width tensor; raises on
-    another shape."""
+def _gates_shape(x, name, wh_cat):
+    """(T, R, G, F, ndir) of a (T, ndir*Bp, 4F) gate-width tensor, ndir
+    read from ``wh_cat``; raises on another shape."""
     T, R, G = x.shape
     F = G // 4
-    if R % 2 or G != 4 * F:
-        raise ValueError("{} must be (T, 2*Bp, 4F), got {}".format(
-            name, tuple(x.shape)))
-    return T, R, G, F
+    ndir = _ndir(wh_cat, F)
+    if R % ndir or G != 4 * F:
+        raise ValueError("{} must be (T, {}*Bp, 4F), got {}".format(
+            name, ndir, tuple(x.shape)))
+    return T, R, G, F, ndir
 
 def bilstm_projection_tmajor(xin_t, wx, b):
     """Input projection of one BiLSTM layer (the projection half of
@@ -202,27 +240,29 @@ def bilstm_projection_tmajor(xin_t, wx, b):
     if not dispatch.use_kernel(xin_t, wx, b):
         return projection_tmajor_plain(xin_t, wx, b)
     T, R, D = xin_t.shape
-    if R % 2:
-        raise ValueError("xin_t rows must be [fwd Bp | bwd Bp], got "
-                         "R={}".format(R))
+    ndir = wx.shape[0]
+    if ndir not in (1, 2) or R % ndir:
+        raise ValueError("xin_t rows must be [fwd Bp | bwd Bp] and wx "
+                         "(ndir, D, 4F) with ndir 1 or 2, got R={}, wx {}"
+                         .format(R, tuple(wx.shape)))
     G = wx.shape[-1]
     wx = wx.to(torch.bfloat16).contiguous()
     b = b.to(torch.float32).contiguous()
     dispatch.check(xin_t, "xin_t", torch.bfloat16, (T, R, D))
-    dispatch.check(wx, "wx", torch.bfloat16, (2, D, G))
-    dispatch.check(b, "b", torch.float32, (2, G))
+    dispatch.check(wx, "wx", torch.bfloat16, (ndir, D, G))
+    dispatch.check(b, "b", torch.float32, (ndir, G))
     pad = -D % 8
     if pad:
         xin_t = torch.nn.functional.pad(xin_t, (0, pad))
         wx = torch.nn.functional.pad(wx, (0, 0, 0, pad))
     xp = torch.empty(T, R, G, dtype=torch.float32, device=xin_t.device)
-    PROJECTION(xin_t.device, xin_t.data_ptr(), wx.data_ptr(), b.data_ptr(),
-               xp.data_ptr(), T, R // 2, D + pad, G)
+    _launch(PROJECTION, ndir, xin_t.device, xin_t.data_ptr(), wx.data_ptr(),
+            b.data_ptr(), xp.data_ptr(), T, R // ndir, D + pad, G, ndir)
     return xp
 
 
 def _recurrence_counters(device):
-    """The persistent kernels' (recurrence and backward) two arrival
+    """The persistent kernels' (recurrence and backward) arrival
     counters, one per direction, each on its own 128-byte line (the
     kernel zeroes them)."""
     return torch.empty(64, dtype=torch.int32, device=device)
@@ -232,24 +272,25 @@ def bilstm_recurrence_tmajor(xp_t, wh_cat):
     """Both directions' recurrence over precomputed projections (the role
     of ``pallas_lstm.bilstm_recurrence_tmajor``).
 
-    xp_t: (T, 2*Bp, 4F) float32; wh_cat: (2F, 4F).  Returns
-    (T, 2*Bp, F) float32.  CUDA tensors launch the persistent hand
+    xp_t: (T, ndir*Bp, 4F) float32; wh_cat: (ndir*F, 4F).  Returns
+    (T, ndir*Bp, F) float32.  CUDA tensors launch the persistent hand
     kernel, which takes F a multiple of 16 and Bp <= 256 as far as its
     shared memory (the F x 32 Wh slice and ceil(Bp/64) tiles of 64 x F
-    bf16) and the co-residency of its 2F/8 blocks admit, and raises
-    :class:`dispatch.KernelError` beyond (for example F = 1024)."""
+    bf16) and the co-residency of its ndir*F/8 blocks admit, and raises
+    :class:`dispatch.KernelError` beyond (for example F = 1024 with both
+    directions)."""
     if not dispatch.use_kernel(xp_t, wh_cat):
         return recurrence_tmajor_plain(xp_t, wh_cat)
-    T, R, G, F = _gates_shape(xp_t, "xp_t")
+    T, R, G, F, ndir = _gates_shape(xp_t, "xp_t", wh_cat)
     wh_cat = wh_cat.to(torch.bfloat16).contiguous()
     dispatch.check(xp_t, "xp_t", torch.float32, (T, R, G))
-    dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (2 * F, G))
+    dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (ndir * F, G))
     out = torch.empty(T, R, F, dtype=torch.float32, device=xp_t.device)
     hbuf = torch.empty(2, R, F, dtype=torch.bfloat16, device=xp_t.device)
     bar = _recurrence_counters(xp_t.device)
-    RECURRENCE(xp_t.device, xp_t.data_ptr(), wh_cat.data_ptr(),
-               out.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), T, R // 2,
-               F)
+    _launch(RECURRENCE, ndir, xp_t.device, xp_t.data_ptr(),
+            wh_cat.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
+            bar.data_ptr(), T, R // ndir, F, ndir)
     return out
 
 
@@ -257,7 +298,8 @@ def bilstm_layer_tmajor(xin_t, wx, wh_cat, b):
     """One BiLSTM layer (the role of ``pallas_lstm.bilstm_layer_tmajor``).
 
     xin_t: (T, 2*Bp, D) bf16, rows [fwd Bp | bwd Bp] with direction 1
-    pre-reversed; wx: (2, D, 4F); wh_cat: (2F, 4F); b: (2, 4F).  Returns
+    pre-reversed; wx: (2, D, 4F); wh_cat: (2F, 4F); b: (2, 4F) (one
+    direction: Bp rows, (1, D, 4F), (F, 4F), (1, 4F)).  Returns
     (T, 2*Bp, F) float32.  CUDA tensors run the projection kernel and
     then the recurrence kernel."""
     if not dispatch.use_kernel(xin_t, wx, wh_cat, b):
@@ -274,10 +316,10 @@ def bilstm_recurrence_train_tmajor(xp_t, wh_cat, res_bf16=False):
     bit-identical to :func:`bilstm_recurrence_tmajor`'s."""
     if not dispatch.use_kernel(xp_t, wh_cat):
         return recurrence_train_tmajor_plain(xp_t, wh_cat, res_bf16)
-    T, R, G, F = _gates_shape(xp_t, "xp_t")
+    T, R, G, F, ndir = _gates_shape(xp_t, "xp_t", wh_cat)
     wh_cat = wh_cat.to(torch.bfloat16).contiguous()
     dispatch.check(xp_t, "xp_t", torch.float32, (T, R, G))
-    dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (2 * F, G))
+    dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (ndir * F, G))
     rdt = torch.bfloat16 if res_bf16 else torch.float32
     dev = xp_t.device
     out = torch.empty(T, R, F, dtype=torch.float32, device=dev)
@@ -285,10 +327,9 @@ def bilstm_recurrence_train_tmajor(xp_t, wh_cat, res_bf16=False):
     c = torch.empty(T, R, F, dtype=rdt, device=dev)
     hbuf = torch.empty(2, R, F, dtype=torch.bfloat16, device=dev)
     bar = _recurrence_counters(dev)
-    RECURRENCE_TRAIN(dev, xp_t.data_ptr(), wh_cat.data_ptr(),
-                     out.data_ptr(), a.data_ptr(), c.data_ptr(),
-                     hbuf.data_ptr(), bar.data_ptr(), T, R // 2, F,
-                     int(bool(res_bf16)))
+    _launch(RECURRENCE_TRAIN, ndir, dev, xp_t.data_ptr(), wh_cat.data_ptr(),
+            out.data_ptr(), a.data_ptr(), c.data_ptr(), hbuf.data_ptr(),
+            bar.data_ptr(), T, R // ndir, F, ndir, int(bool(res_bf16)))
     return out, a, c
 
 
@@ -303,7 +344,7 @@ def dz_bwd_tmajor(a, c, gout, wh_cat):
     :class:`dispatch.KernelError` beyond."""
     if not dispatch.use_kernel(a, c, gout, wh_cat):
         return dz_bwd_tmajor_plain(a, c, gout, wh_cat)
-    T, R, G, F = _gates_shape(a, "a")
+    T, R, G, F, ndir = _gates_shape(a, "a", wh_cat)
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("a must be float32 or bf16, got {}".format(
             a.dtype))
@@ -312,16 +353,17 @@ def dz_bwd_tmajor(a, c, gout, wh_cat):
     dispatch.check(a, "a", a.dtype, (T, R, G))
     dispatch.check(c, "c", a.dtype, (T, R, F))
     dispatch.check(gout, "gout", a.dtype, (T, R, F))
-    dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (2 * F, G))
+    dispatch.check(wh_cat, "wh_cat", torch.bfloat16, (ndir * F, G))
     dev = a.device
     dz = torch.empty(T, R, G, dtype=torch.float32, device=dev)
     # dz_{t+1} / dz_t in the kernel's chunk-major layout: 4F columns a
     # row plus at most 2F of row padding.
     dzbuf = torch.empty(2, R, 6 * F, dtype=torch.bfloat16, device=dev)
     bar = _recurrence_counters(dev)
-    BACKWARD(dev, a.data_ptr(), c.data_ptr(), gout.data_ptr(),
-             wh_cat.data_ptr(), dz.data_ptr(), dzbuf.data_ptr(),
-             bar.data_ptr(), T, R // 2, F, int(a.dtype == torch.bfloat16))
+    _launch(BACKWARD, ndir, dev, a.data_ptr(), c.data_ptr(), gout.data_ptr(),
+            wh_cat.data_ptr(), dz.data_ptr(), dzbuf.data_ptr(),
+            bar.data_ptr(), T, R // ndir, F, ndir,
+            int(a.dtype == torch.bfloat16))
     return dz
 
 
@@ -341,27 +383,28 @@ def mm_f32(x, y):
     return torch.mm(x16.to(torch.float32), y16.to(torch.float32))
 
 
-def dwh_from_dz(h, dz, F):
+def dwh_from_dz(h, dz, F, ndir=2):
     """dWh_cat = sum_t h[t-1]^T dz[t] per direction (the role of
-    ``pallas_lstm._dwh_from_dz``): (2F, 4F) float32."""
+    ``pallas_lstm._dwh_from_dz``): (ndir*F, 4F) float32."""
     T, R, G = dz.shape
-    Bp = R // 2
+    Bp = R // ndir
     hprev = torch.cat([torch.zeros_like(h[:1]), h[:-1]], dim=0)
     return torch.cat([
         mm_f32(hprev[:, d * Bp:(d + 1) * Bp].reshape(T * Bp, F).t(),
                dz[:, d * Bp:(d + 1) * Bp].reshape(T * Bp, G))
-        for d in range(2)], dim=0)
+        for d in range(ndir)], dim=0)
 
 
 def layer_grads(xin_t, wx, dz):
-    """dWx (2, D, 4F), db (2, 4F) and dxin (T, 2*Bp, D) of the projection
-    ``bf16(xin . Wx) + b`` from dz (the GEMMs of
+    """dWx (ndir, D, 4F), db (ndir, 4F) and dxin (T, ndir*Bp, D) of the
+    projection ``bf16(xin . Wx) + b`` from dz (the GEMMs of
     ``pallas_lstm._layer_bwd``); dxin takes xin's dtype."""
     T, R, D = xin_t.shape
     G = dz.shape[-1]
-    Bp = R // 2
+    ndir = wx.shape[0]
+    Bp = R // ndir
     dwx, db, dx = [], [], []
-    for d in range(2):
+    for d in range(ndir):
         x_d = xin_t[:, d * Bp:(d + 1) * Bp].reshape(T * Bp, D)
         dz_d = dz[:, d * Bp:(d + 1) * Bp].reshape(T * Bp, G)
         dwx.append(mm_f32(x_d.t(), dz_d))
@@ -388,7 +431,8 @@ class BiLSTMRecurrenceFn(torch.autograd.Function):
     def backward(ctx, g):
         wh_cat, h, a, c = ctx.saved_tensors
         dz = dz_bwd_tmajor(a, c, g.contiguous(), wh_cat)
-        dwh = dwh_from_dz(h, dz, wh_cat.shape[0] // 2)
+        F = h.shape[-1]
+        dwh = dwh_from_dz(h, dz, F, wh_cat.shape[0] // F)
         return dz, dwh.to(wh_cat.dtype), None
 
 
@@ -411,6 +455,6 @@ class BiLSTMLayerFn(torch.autograd.Function):
     def backward(ctx, g):
         xin_t, wx, wh_cat, h, a, c = ctx.saved_tensors
         dz = dz_bwd_tmajor(a, c, g.contiguous(), wh_cat)
-        dwh = dwh_from_dz(h, dz, wh_cat.shape[0] // 2)
+        dwh = dwh_from_dz(h, dz, h.shape[-1], wx.shape[0])
         dwx, db, dxin = layer_grads(xin_t, wx, dz)
         return dxin, dwx.to(wx.dtype), dwh.to(wh_cat.dtype), db, None

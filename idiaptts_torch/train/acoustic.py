@@ -243,6 +243,9 @@ class AcousticModelTrainer(ModularTrainer):
         vocoder; one per configuration, cached), ``params`` what it runs
         the model with (the EMA parameters when configured, else the
         model) and ``load_inputs(id_name)`` the question-matrix loader.
+        Under tensor parallelism the pipeline runs a one-device copy of
+        the gathered weights (``one_device_model``, a collective every
+        rank calls), as a server batches on each rank alone.
 
         A model with inputs besides the questions (a speaker index for
         an EMB group, say) takes them as trailing columns of the question
@@ -252,6 +255,7 @@ class AcousticModelTrainer(ModularTrainer):
         utterance.  The pipeline is cached by the input names and widths
         too."""
         handler = self.model_handler
+        one_model, one_ema = handler.one_device_model()
         reader_q = self.datareaders["questions"]
         reader_cmp = self.datareaders["cmp_features"]
         if reader_cmp.covs[0] is None or reader_cmp.norm_params is None:
@@ -307,7 +311,7 @@ class AcousticModelTrainer(ModularTrainer):
                                                          ("lf0", 1),
                                                          ("bap", 3))}
             mean, scale = reader_cmp.norm_params
-            model = handler.model
+            model = one_model
             output_name = handler.model_config.output_names[0]
 
             def model_apply(params, questions_b, lengths_b):
@@ -334,8 +338,7 @@ class AcousticModelTrainer(ModularTrainer):
                 mean=np.asarray(mean).reshape(-1),
                 scale=np.asarray(scale).reshape(-1),
                 mgc_alpha=hparams.get("mgc_alpha"), device=handler.device)
-        params = handler.ema.shadow if handler.ema is not None \
-            else handler.model
+        params = one_ema if one_ema is not None else one_model
         return cache[pipe_key], params, load_inputs
 
     def serve(self, hparams, max_batch=32, max_wait_ms=5.0):

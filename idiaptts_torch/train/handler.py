@@ -25,7 +25,10 @@ forward updates them, inference reads them, checkpoints save them.
 Residual precision of the BiLSTM training kernels follows the JAX
 handler's rule by default (``residuals_bf16 = None``): bf16 residual
 streams when a rank's batch has more than 32 rows, float32 otherwise.
-True or False overrides the rule.
+True or False overrides the rule.  Under tensor parallelism the rows are
+those of the rank's recurrence launch (its row block of the BiLSTM):
+the JAX tensor-parallel step never reaches its kernels (GSPMD has no
+rule for ``pallas_call``), so the JAX rule has no counterpart there.
 
 Data parallelism (``setup_mesh``, the counterpart of the JAX handler's
 ``shard_map`` step): every rank of a ``torch.distributed`` group holds
@@ -38,8 +41,26 @@ gradients are summed over the ranks, which makes them the global
 gradient; the chain above then runs on every rank alike.  BatchNorm's
 running averages become the mean of the ranks' updates.  A batch that
 does not divide runs whole on every rank, with rank 0's gradients and
-running averages copied to the others.  Tensor parallelism
-(``model_parallel > 1``) is not ported.
+running averages copied to the others.
+
+Tensor parallelism (``setup_mesh(model_parallel=M)``, the JAX handler's
+``(data, model)`` mesh and ``_apply_param_shardings``): the ranks form a
+grid of ``D x M`` (``parallel/mesh.py``'s ``TensorMesh``), the model is
+sharded over each row of M ranks (column-parallel Dense kernels, the
+BiLSTM split by direction; ``make_param_shardings``), and the batch over
+the D ranks of each column, as data parallelism above does over the
+world, except that BatchNorm's batch statistics cover the data group's
+rows (the JAX GSPMD step's), which leaves the running averages equal on
+every rank.  The ranks of a model group draw one dropout mask (the
+generator is seeded with the data rank).  The gradients of BiLSTM pieces that
+several ranks of a row hold (M >= 4) are summed over them, then every
+gradient over the data group; the norm of ``grad_clip_max_norm`` and
+``last_grad_norm`` is the whole model's.  Every rank must run every
+step, evaluation and inference, as the sharded forward needs its whole
+model group.  Checkpoints hold the one-device state dict and optimiser
+moments, gathered (every rank calls ``save_checkpoint``, rank 0
+writes), and every rank loads one and shards it, so a one-process
+handler and a tensor-parallel one read each other's checkpoints.
 
 Checkpoints keep the JAX handler's directory layout
 (``<dir>/<model_name>/<networks_dir>/config.json``, ``params_<suffix>``,
@@ -48,6 +69,7 @@ Checkpoints keep the JAX handler's directory layout
 of the state dicts, and the scheduler state as JSON.
 """
 
+import contextlib
 import glob
 import json
 import logging
@@ -119,38 +141,119 @@ class ModularModelHandler(ModelHandler):
         self.mesh = None
         self.generator = torch.Generator(device=self.device).manual_seed(42)
 
-    # -- data parallelism -------------------------------------------------
+    # -- data and tensor parallelism -----------------------------------------
     def setup_mesh(self, num_devices=None, axis_name="data",
                    model_parallel=1, use_shard_map="auto"):
-        """Train data-parallel over the joined ``torch.distributed`` group
-        (``num_devices``, when given, must equal its size).  The handler
-        moves to the rank's device, its generator is seeded with the
-        rank, and rank 0's parameters and buffers are copied to every
-        rank.  ``use_shard_map`` is accepted for the JAX signature and
-        has no effect; ``model_parallel > 1`` raises."""
-        if (model_parallel or 1) > 1:
-            raise NotImplementedError(
-                "model_parallel={}: tensor parallelism is not ported to "
-                "idiaptts_torch (ROADMAP.md queue 1, the tensor-parallel "
-                "item); train data-parallel with model_parallel=1".format(
-                    model_parallel))
-        self.mesh = mesh_lib.make_data_mesh(num_devices, axis_name,
-                                            self.device)
+        """Train over the joined ``torch.distributed`` group
+        (``num_devices``, when given, must equal its size): data-parallel,
+        or with ``model_parallel=M`` over a ``(data, model)`` grid whose
+        rows shard the model (M must divide the world size, else
+        ``ValueError``).  The handler moves to the rank's device, its
+        generator is seeded with the (data) rank, rank 0's parameters
+        and buffers are copied to every rank, and under tensor
+        parallelism each rank keeps its shards, with the optimiser (its
+        state fresh, as the JAX handler's ``init``) and EMA shadows
+        rebuilt on them.  ``use_shard_map`` is accepted for the JAX
+        signature and has no effect."""
+        self.mesh = mesh_lib.make_2d_mesh(
+            num_devices, model_parallel, (axis_name, "model"), self.device)
         self.device = self.mesh.device
         self.generator = torch.Generator(device=self.device).manual_seed(
-            42 + self.mesh.rank)
+            42 + self.mesh.data.rank)
         if self.model is not None:
             self.model.to(self.device)
             mesh_lib.replicate(self.model, self.mesh)
+            self._shard_model()
         return self.mesh
 
+    @property
+    def tensor_parallel(self):
+        """Whether the model is sharded over a model group."""
+        return isinstance(self.mesh, mesh_lib.TensorMesh)
+
+    def _shard_model(self):
+        """Shard the model over the mesh's model group and rebuild what
+        holds its parameters (the JAX ``_apply_param_shardings``)."""
+        if not self.tensor_parallel:
+            return
+        mesh_lib.shard_module(self.model, self.mesh)
+        if self.optimiser is not None:
+            self.optimiser = type(self.optimiser)(
+                list(self.model.parameters()), **self.optimiser.defaults)
+        if self.ema is not None:
+            self.ema = ExponentialMovingAverage(self.model, self.ema.decay)
+
+    def full_state_dict(self, state=None):
+        """The model's one-device state dict (or that of ``state``, named
+        as it, such as EMA shadows): gathered from the shards under
+        tensor parallelism, a collective every rank must call."""
+        if not self.tensor_parallel:
+            return self.model.state_dict() if state is None else state
+        return mesh_lib.gather_state_dict(self.model, self.mesh, state)
+
+    def _local_state(self, state):
+        """A one-device state dict cut to this rank's shards."""
+        if not self.tensor_parallel:
+            return state
+        return mesh_lib.shard_state_dict(state, self.model, self.mesh)
+
+    def _optimiser_state(self, blob, gather):
+        """The optimiser's state dict with each moment shaped as its
+        parameter gathered to the one-device layout (``gather``) or cut
+        to this rank's piece; others as they are."""
+        if not self.tensor_parallel:
+            return blob
+        params = [p for g in self.optimiser.param_groups
+                  for p in g["params"]]
+        indices = [i for g in blob["param_groups"] for i in g["params"]]
+        state = {}
+        for idx, entry in blob["state"].items():
+            shard = mesh_lib.shard_of(params[indices.index(idx)])
+            state[idx] = {
+                k: v if shard is None or not torch.is_tensor(v)
+                or v.dim() == 0
+                else mesh_lib.gather_tensor(v, shard, self.mesh) if gather
+                else shard.piece(v, self.mesh).clone()
+                for k, v in entry.items()}
+        return {**blob, "state": state}
+
+    def one_device_model(self):
+        """``(model, ema_params)`` for a path that runs the model on one
+        rank alone (serving): under tensor parallelism a one-device copy
+        built from the gathered weights (a collective every rank must
+        call), else the handler's own model and EMA shadows."""
+        ema = self.ema.shadow if self.ema is not None else None
+        if not self.tensor_parallel:
+            return self.model, ema
+        model = self.model_config.create_model().to(self.device)
+        model.load_state_dict(self.full_state_dict())
+        if ema is not None:
+            ema = self.full_state_dict(ema)
+        return model, ema
+
     def _shards(self, data, lengths):
-        """True when every leaf of the batch divides by the world size,
-        so the batch shards (the JAX ``_get_shmap_step`` rule)."""
+        """True when every leaf of the batch divides by the data group's
+        size, so the batch shards (the JAX ``_get_shmap_step`` rule)."""
         leaves = list(data.values()) + (
             [] if lengths is None else list(lengths.values())
             if isinstance(lengths, dict) else [lengths])
-        return all(mesh_lib.divides(v, self.mesh) for v in leaves)
+        return all(mesh_lib.divides(v, self.mesh.data) for v in leaves)
+
+    @contextlib.contextmanager
+    def _synced_batch_norm(self, sharded):
+        """Under tensor parallelism, BatchNorm's batch statistics over the
+        data group's rows while a data-sharded step runs (its backward
+        and any recompute included), as the JAX GSPMD step takes them."""
+        layers = [m for m in self.model.modules()
+                  if isinstance(m, _BatchNorm)] \
+            if sharded and self.tensor_parallel else []
+        for m in layers:
+            m.data_mesh = self.mesh.data
+        try:
+            yield
+        finally:
+            for m in layers:
+                m.data_mesh = None
 
     def _batch_stats(self):
         """BatchNorm's running averages (the JAX ``batch_stats``)."""
@@ -171,10 +274,11 @@ class ModularModelHandler(ModelHandler):
     def init_params(self, example_batch=None, seed=1234):
         """Fresh weights from a generator seeded with ``seed`` (the JAX
         handler's flax ``init``; the port's modules know their shapes, so
-        ``example_batch`` is accepted for the signature); returns the
-        named parameters."""
+        ``example_batch`` is accepted for the signature), sharded under
+        tensor parallelism; returns the named parameters."""
         self.model = self.model_config.create_model(
             torch.Generator().manual_seed(seed)).to(self.device)
+        self._shard_model()
         return dict(self.model.named_parameters())
 
     def _batch_to_model_input(self, batch):
@@ -282,9 +386,10 @@ class ModularModelHandler(ModelHandler):
                                device=self.device), loss_values
 
     def residuals_bf16_for(self, rows):
-        """The BiLSTM training residuals' type for a batch of ``rows``
-        rows: the explicit ``residuals_bf16`` flag, or without one the
-        JAX handler's rule, bf16 above 32 rows a device."""
+        """The BiLSTM training residuals' type for a recurrence launch of
+        ``rows`` batch rows: the explicit ``residuals_bf16`` flag, or
+        without one the JAX handler's rule, bf16 above 32 rows a
+        device."""
         if self.residuals_bf16 is None:
             return rows > BF16_RESIDUAL_ROWS
         return bool(self.residuals_bf16)
@@ -294,6 +399,9 @@ class ModularModelHandler(ModelHandler):
         in (group path, and the bare leaf name where it is free)."""
         rows = next((v.shape[0] for v in data.values()
                      if torch.is_tensor(v) and v.dim() >= 1), 0)
+        if self.tensor_parallel and self.mesh.model.size % 2 == 0:
+            _, start, stop, _ = mesh_lib.direction_rows(rows, self.mesh)
+            rows = stop - start
         intermediates = {}
         out = self.model(data, lengths=lengths, training=training,
                          generator=self.generator,
@@ -305,15 +413,18 @@ class ModularModelHandler(ModelHandler):
             flat.setdefault(key.rsplit("/", 1)[-1], value)
         return flat
 
-    @staticmethod
-    def _global_norm(grads):
+    def _global_norm(self, params):
+        """The gradients' L2 norm over the whole model."""
+        if self.tensor_parallel:
+            return mesh_lib.global_norm(params, self.mesh)
         return torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.to(torch.float32)) for g in grads]))
+            [torch.linalg.vector_norm(p.grad.to(torch.float32))
+             for p in params]))
 
     def _sharded_forward(self, data, lengths):
         """This rank's forward on its rows, its outputs gathered over the
-        ranks (the batch's own tensors taken whole)."""
-        mesh = self.mesh
+        data group (the batch's own tensors taken whole)."""
+        mesh = self.mesh.data
         shard = mesh_lib.shard_batch(data, mesh)
         out = self._apply_model(shard, mesh_lib.shard_batch(lengths, mesh),
                                 training=True)
@@ -328,37 +439,42 @@ class ModularModelHandler(ModelHandler):
         for group in self.optimiser.param_groups:
             group["lr"] = lr
         self.optimiser.zero_grad(set_to_none=False)
-        sharded = self.mesh is not None and self.mesh.distributed \
+        data_mesh = self.mesh.data if self.mesh is not None else None
+        sharded = data_mesh is not None and data_mesh.distributed \
             and self._shards(data, lengths)
-        if sharded:
-            out = self._sharded_forward(data, lengths)
-        else:
-            out = self._apply_model(data, lengths, training=True)
-        total, loss_values = self._losses_total(out, self.total_steps)
-        total.backward()
+        with self._synced_batch_norm(sharded):
+            if sharded:
+                out = self._sharded_forward(data, lengths)
+            else:
+                out = self._apply_model(data, lengths, training=True)
+            total, loss_values = self._losses_total(out, self.total_steps)
+            total.backward()
         named = [(n, p) for n, p in self.model.named_parameters()
                  if p.requires_grad]
         for _, p in named:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for _, p in named]
-        if sharded:
+        params = [p for _, p in named]
+        if self.tensor_parallel:
+            mesh_lib.reduce_gradients(params, self.mesh, sharded)
+        elif sharded:
             # Each rank's gradient is its rows' part of the global one.
-            mesh_lib.all_reduce_gradients([p for _, p in named], self.mesh)
-        elif self.mesh is not None and self.mesh.distributed:
-            mesh_lib.broadcast_flat(grads, self.mesh)
+            mesh_lib.all_reduce_gradients(params, data_mesh)
+        elif data_mesh is not None and data_mesh.distributed:
+            mesh_lib.broadcast_flat(grads, data_mesh)
         with torch.no_grad():
             if self.replace_inf_grads_by_zero:
                 for g in grads:
                     g.copy_(torch.where(torch.isfinite(g), g,
                                         torch.zeros_like(g)))
-            grad_norm = self._global_norm(grads)
+            grad_norm = self._global_norm(params)
             for n, p in named:
                 if any(re.search(pat, param_path(n))
                        for pat in self.frozen_layers):
                     p.grad.zero_()
             if self.grad_clip_max_norm is not None:
-                norm = self._global_norm(grads)
+                norm = self._global_norm(params)
                 max_norm = self.grad_clip_max_norm
                 for g in grads:
                     g.copy_(torch.where(norm < max_norm, g,
@@ -367,15 +483,17 @@ class ModularModelHandler(ModelHandler):
                 for g in grads:
                     g.clamp_(-self.grad_clip_thresh, self.grad_clip_thresh)
         self.optimiser.step()
-        stats = self._batch_stats() if self.mesh is not None \
-            and self.mesh.distributed else []
+        # Synced statistics leave the running averages equal already.
+        stats = self._batch_stats() if data_mesh is not None \
+            and data_mesh.distributed \
+            and not (sharded and self.tensor_parallel) else []
         if sharded and stats:
             with torch.no_grad():
-                mesh_lib.all_reduce_flat(stats)
+                mesh_lib.all_reduce_flat(stats, data_mesh.group)
                 for b in stats:
-                    b.div_(self.mesh.size)
+                    b.div_(data_mesh.size)
         elif stats:
-            mesh_lib.broadcast_flat(stats, self.mesh)
+            mesh_lib.broadcast_flat(stats, data_mesh)
         if self.ema is not None:
             self.ema.update(self.model)
         return total.detach(), loss_values, grad_norm
@@ -449,8 +567,19 @@ class ModularModelHandler(ModelHandler):
     def save_checkpoint(self, directory, model_name=None, epoch=None,
                         step=None, best=False, last=False, best_loss=None,
                         networks_dir="nn"):
-        """Write config.json + params_/optimiser_/scheduler_<suffix>."""
+        """Write config.json + params_/optimiser_/scheduler_<suffix>.
+        Under tensor parallelism every rank calls it (the weights and
+        moments are gathered) and rank 0 writes."""
         out_dir = os.path.join(directory, model_name or "", networks_dir)
+        params = {k: v.detach().cpu()
+                  for k, v in self.full_state_dict().items()}
+        ema = None if self.ema is None else {
+            k: v.detach().cpu()
+            for k, v in self.full_state_dict(self.ema.shadow).items()}
+        opt_blob = None if self.optimiser is None else \
+            self._optimiser_state(self.optimiser.state_dict(), gather=True)
+        if self.tensor_parallel and self.mesh.rank != 0:
+            return out_dir
         os.makedirs(out_dir, exist_ok=True)
         if self.model_config is not None:
             self._atomic(os.path.join(out_dir, "config.json"),
@@ -464,19 +593,14 @@ class ModularModelHandler(ModelHandler):
             suffixes.append("best")
         if last:
             suffixes.append("last")
-        params = {k: v.detach().cpu()
-                  for k, v in self.model.state_dict().items()}
         state = {"params": params}
-        if self.ema is not None:
+        if ema is not None:
             # The EMA parameters serve inference; the raw ones resume
             # training with the optimiser moments that belong to them.
-            state = {"params": {**params,
-                                **{k: v.detach().cpu()
-                                   for k, v in self.ema.shadow.items()}},
-                     "raw_params": params}
+            state = {"params": {**params, **ema}, "raw_params": params}
         opt_state = None
-        if self.optimiser is not None:
-            opt_state = {"opt_state": self.optimiser.state_dict(),
+        if opt_blob is not None:
+            opt_state = {"opt_state": opt_blob,
                          "best_loss": None if best_loss is None
                          else float(best_loss),
                          "total_steps": int(self.total_steps)}
@@ -497,7 +621,8 @@ class ModularModelHandler(ModelHandler):
                         load_optimiser=True, load_scheduler=True,
                         ignore_layers=(), layer_map=(), networks_dir="nn"):
         """Load params (+ optimiser and scheduler); returns (best_loss,
-        epoch, total_steps)."""
+        epoch, total_steps).  A one-device checkpoint: under tensor
+        parallelism every rank loads it and keeps its shards."""
         out_dir = os.path.join(directory, model_name or "", networks_dir)
         if epoch is not None:
             suffix = "e{}".format(epoch)
@@ -514,16 +639,19 @@ class ModularModelHandler(ModelHandler):
             with open(os.path.join(out_dir, "config.json")) as f:
                 self.model_config = ModelConfig.from_json(f.read())
             self.model = self.model_config.create_model().to(self.device)
+            self._shard_model()
         state = torch.load(path, map_location="cpu", weights_only=True)
         new_params = state["params"]
         raw_params = state.get("raw_params")
         if raw_params is not None and load_optimiser:
             if self.ema is not None:
                 self.ema.shadow = {k: v.to(self.device)
-                                   for k, v in new_params.items()}
+                                   for k, v in self._local_state(
+                                       new_params).items()}
             new_params = raw_params
         if layer_map:
             new_params = _apply_layer_map(new_params, layer_map)
+        new_params = self._local_state(new_params)
         if ignore_layers:
             new_params = _merge_ignored(new_params, self.model.state_dict(),
                                         ignore_layers)
@@ -539,7 +667,8 @@ class ModularModelHandler(ModelHandler):
             self.total_steps = int(blob.get("total_steps", 0) or 0)
             if load_optimiser and self.optimiser is not None:
                 try:
-                    self.optimiser.load_state_dict(blob["opt_state"])
+                    self.optimiser.load_state_dict(self._optimiser_state(
+                        blob["opt_state"], gather=False))
                 except (KeyError, ValueError) as e:
                     logger.warning("Optimiser state mismatch, kept the "
                                    "fresh state: %s", e)

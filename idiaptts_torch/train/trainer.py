@@ -28,8 +28,15 @@ builds the same batches (the same shuffle, and crops drawn from the
 seed) and trains its rows of each through the handler's data-parallel
 step.  Only rank 0 writes checkpoints, TensorBoard, figures and the
 epoch logs; every rank loads checkpoints, and saves are fenced by
-barriers.  ``model_parallel > 1`` (tensor parallelism) raises
-``NotImplementedError``.
+barriers.
+
+Tensor parallelism: with ``hparams.model_parallel = M > 1`` the trainer
+joins the group the same way (it raises ``ValueError`` when no group of
+a multiple of M ranks was launched) and the handler trains over a
+``(data, model)`` grid of ranks.  Validation, ``test``, ``forward``,
+``benchmark``, ``synth`` and checkpoint saves run on every rank in the
+same order, as the sharded model needs its whole model group; rank 0
+writes.  Serving runs a one-device copy of the gathered weights.
 
 Figures: ``gen_figure`` draws each utterance's post-processed outputs
 through :class:`idiaptts_torch.utils.plotter.DataPlotter` (matplotlib,
@@ -796,11 +803,13 @@ class ModularTrainer:
 
     def save_checkpoint(self, hparams, epoch=None, best=False, last=False):
         """Write a checkpoint (rank 0 of a data-parallel group, between
-        two barriers, so no rank reads it half written); returns its
+        two barriers, so no rank reads it half written; under tensor
+        parallelism every rank gathers and rank 0 writes); returns its
         directory."""
         self._barrier()
         path = self.get_model_path(hparams)
-        if self.is_writer:
+        if self.is_writer or getattr(self.model_handler,
+                                         "tensor_parallel", False):
             path = self.model_handler.save_checkpoint(
                 hparams.out_dir, hparams.model_name, epoch=epoch, best=best,
                 last=last, best_loss=self.best_loss,
@@ -912,17 +921,19 @@ class ModularTrainer:
 
 
 def _data_parallel(hparams):
-    """Whether ``hparams`` ask for data-parallel training; tensor
-    parallelism raises."""
+    """Whether ``hparams`` ask for training over a process group (data or
+    tensor parallel).  Tensor parallelism without a launched group (no
+    torchrun environment) raises ``ValueError``, as a mesh that
+    ``model_parallel`` does not divide does."""
     model_parallel = hparams.get("model_parallel", 1) or 1
-    if model_parallel > 1:
-        raise NotImplementedError(
-            "model_parallel={}: tensor parallelism is not ported to "
-            "idiaptts_torch (ROADMAP.md queue 1, the tensor-parallel item); "
-            "train data-parallel with model_parallel=1".format(
-                model_parallel))
+    if model_parallel > 1 and not torch.distributed.is_initialized() \
+            and "WORLD_SIZE" not in os.environ:
+        raise ValueError(
+            "model_parallel={} needs a group of a multiple of {} ranks: "
+            "launch with torchrun --nproc_per_node=N and "
+            "hparams.num_devices=N".format(model_parallel, model_parallel))
     return (hparams.get("num_devices", 1) or 1) > 1 \
-        or bool(hparams.get("distributed_run"))
+        or model_parallel > 1 or bool(hparams.get("distributed_run"))
 
 
 def _figure_path(id_name, hparams):

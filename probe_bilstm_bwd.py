@@ -271,14 +271,14 @@ CLUSTER_SUBS = (
     ("template <int MT, typename ResT>\nint launch_tiles(",
      CLUSTER_LAUNCH + "template <int MT, typename ResT>\nint launch_tiles("),
     ("  return static_cast<int>(idt::launch_persistent(\n"
-     "      bilstm_bwd_kernel<MT, ResT>, 2 * (F / UNITS), THREADS,\n"
+     "      bilstm_bwd_kernel<MT, ResT>, ndir * (F / UNITS), THREADS,\n"
      "      smem_bytes(Bp, F, KC), args, bar_, stream,\n"
-     "      2 * BAR_STRIDE * sizeof(unsigned int)));\n",
+     "      ndir * BAR_STRIDE * sizeof(unsigned int)));\n",
      "  const int groups = F / UNITS;\n"
      "  for (int cluster = CLUSTER;; cluster /= 2) {\n"
      "    if (groups % cluster) continue;\n"
      "    const cudaError_t err = launch_cluster(\n"
-     "        bilstm_bwd_kernel<MT, ResT>, 2 * groups,\n"
+     "        bilstm_bwd_kernel<MT, ResT>, ndir * groups,\n"
      "        smem_bytes(Bp, F, KC), args, bar_, stream, cluster);\n"
      "    if (err != cudaErrorCooperativeLaunchTooLarge || cluster == 1)\n"
      "      return static_cast<int>(err);\n"
@@ -286,7 +286,7 @@ CLUSTER_SUBS = (
 )
 CHECKED = ("kernel", "kernel_grid_barrier", "units16", "cluster1",
            "cluster2", "k_batch", "wait_once", "threads256")
-ENTRIES = {"idt_bilstm_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4}
+ENTRIES = {"idt_bilstm_bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5}
 
 
 def variants(src):
@@ -354,7 +354,7 @@ def launcher(torch, lib):
         err = lib.idt_bilstm_bwd(
             a.data_ptr(), c.data_ptr(), gout.data_ptr(), wh.data_ptr(),
             dz.data_ptr(), dzbuf.data_ptr(), bar.data_ptr(), T, R // 2,
-            G // 4, int(a.dtype == torch.bfloat16),
+            G // 4, 2, int(a.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError("launch failed: cuda error {}".format(err))

@@ -87,7 +87,7 @@ def variants(src):
     }
 
 
-ENTRIES = {"idt_bilstm_proj": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4}
+ENTRIES = {"idt_bilstm_proj": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5}
 
 
 def build(srcs, out_dir, entries=None):
@@ -130,7 +130,7 @@ def launcher(torch, lib):
         T, R, K = xin.shape
         err = lib.idt_bilstm_proj(xin.data_ptr(), wx.data_ptr(),
                                   bias.data_ptr(), xp.data_ptr(), T, R // 2,
-                                  K, wx.shape[-1],
+                                  K, wx.shape[-1], 2,
                                   torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError("launch failed: cuda error {}".format(err))

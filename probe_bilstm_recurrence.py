@@ -117,9 +117,9 @@ TWO_ACC_SUM = (
     "      idt::fence_acc(acc2[m]);\n#pragma unroll\n"
     "      for (int i = 0; i < 16; ++i) acc[m][i] += acc2[m][i];\n    }\n")
 ENTRIES = {
-    "idt_bilstm_recurrence": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3,
+    "idt_bilstm_recurrence": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4,
     "idt_bilstm_recurrence_train": ([ctypes.c_void_p] * 7
-                                    + [ctypes.c_int] * 4),
+                                    + [ctypes.c_int] * 5),
 }
 
 
@@ -189,7 +189,7 @@ def launchers(torch, lib):
         hbuf, bar = scratch(xp)
         check(lib.idt_bilstm_recurrence(
             xp.data_ptr(), wh.data_ptr(), out.data_ptr(), hbuf.data_ptr(),
-            bar.data_ptr(), T, R // 2, G // 4,
+            bar.data_ptr(), T, R // 2, G // 4, 2,
             torch.cuda.current_stream().cuda_stream))
 
     def train(xp, wh, out, a, c):
@@ -198,7 +198,7 @@ def launchers(torch, lib):
         check(lib.idt_bilstm_recurrence_train(
             xp.data_ptr(), wh.data_ptr(), out.data_ptr(), a.data_ptr(),
             c.data_ptr(), hbuf.data_ptr(), bar.data_ptr(), T, R // 2,
-            G // 4, 0, torch.cuda.current_stream().cuda_stream))
+            G // 4, 2, 0, torch.cuda.current_stream().cuda_stream))
 
     return infer, train
 

@@ -360,6 +360,108 @@ def test_layer_autograd_on_the_card_matches_plain_autograd(dev, D, F):
             <= 2e-2 * scale
 
 
+# The one-direction instances (ndir = 1, a tensor-parallel rank's
+# launches) at the edges of every kernel: T = 1, Bp = 1, 7, 64, 65, 130,
+# D = 409 (padded K), F = 64, 80 and 512.  Each block or tile does the
+# arithmetic it does in the two-direction launch, so a direction's inputs
+# give that direction's half bit for bit.
+@pytest.mark.parametrize("T,B,D,F", [(1, 1, 96, 64), (37, 7, 409, 80),
+                                     (16, 64, 256, 128), (12, 65, 128, 64),
+                                     (10, 130, 96, 512), (33, 8, 1024, 512)])
+def test_one_direction_instances_are_the_halves(dev, T, B, D, F):
+    g = _gen(dev, 6)
+    xin = torch.randn(T, 2 * B, D, generator=g, device=dev).to(
+        torch.bfloat16)
+    wx = (torch.randn(2, D, 4 * F, generator=g, device=dev)
+          / D ** 0.5).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(2, 4 * F, generator=g, device=dev)
+    wh = (torch.randn(2 * F, 4 * F, generator=g, device=dev)
+          / F ** 0.5).to(torch.bfloat16)
+    gout = 0.1 * torch.randn(T, 2 * B, F, generator=g, device=dev)
+    xp = cuda_lstm.bilstm_projection_tmajor(xin, wx, bias)
+    h = cuda_lstm.bilstm_recurrence_tmajor(xp, wh)
+    halves = {res: cuda_lstm.bilstm_recurrence_train_tmajor(xp, wh, res)
+              for res in (False, True)}
+    dz = {res: cuda_lstm.dz_bwd_tmajor(a, c, gout, wh)
+          for res, (_, a, c) in halves.items()}
+    kernels = (cuda_lstm.PROJECTION_ONEDIR, cuda_lstm.RECURRENCE_ONEDIR,
+               cuda_lstm.RECURRENCE_TRAIN_ONEDIR, cuda_lstm.BACKWARD_ONEDIR)
+    two = (cuda_lstm.PROJECTION, cuda_lstm.RECURRENCE,
+           cuda_lstm.RECURRENCE_TRAIN, cuda_lstm.BACKWARD)
+    before = [k.launches for k in kernels + two]
+    for d in range(2):
+        rows = slice(d * B, (d + 1) * B)
+        units = slice(d * F, (d + 1) * F)
+        xp1 = cuda_lstm.bilstm_projection_tmajor(
+            xin[:, rows].contiguous(), wx[d:d + 1], bias[d:d + 1])
+        assert torch.equal(xp1, xp[:, rows])
+        assert torch.equal(cuda_lstm.bilstm_recurrence_tmajor(xp1, wh[units]),
+                           h[:, rows])
+        for res, (h2, a2, c2) in halves.items():
+            h1, a1, c1 = cuda_lstm.bilstm_recurrence_train_tmajor(
+                xp1, wh[units], res)
+            assert torch.equal(h1, h2[:, rows])
+            assert torch.equal(a1, a2[:, rows])
+            assert torch.equal(c1, c2[:, rows])
+            assert torch.equal(cuda_lstm.dz_bwd_tmajor(
+                a1, c1, gout[:, rows].contiguous(), wh[units]),
+                dz[res][:, rows])
+    torch.cuda.synchronize()
+    after = [k.launches for k in kernels + two]
+    assert [n - b for n, b in zip(after, before)] == [2, 2, 4, 4, 0, 0, 0, 0]
+    # And against the plain versions on the direction's inputs.
+    xp1 = cuda_lstm.bilstm_projection_tmajor(xin[:, :B].contiguous(),
+                                             wx[:1], bias[:1])
+    torch.testing.assert_close(
+        cuda_lstm.bilstm_recurrence_tmajor(xp1, wh[:F]),
+        cuda_lstm.recurrence_tmajor_plain(xp1, wh[:F]), rtol=0,
+        atol=REC_TOL)
+
+
+def test_one_direction_layer_autograd_matches_plain_autograd(dev):
+    """BiLSTMLayerFn on one direction's weights (a tensor-parallel rank's
+    layer) against autograd through the plain one-direction layer."""
+    T, B, D, F = 24, 4, 256, 256
+    g = _gen(dev, 7)
+    args = [torch.randn(T, B, D, generator=g, device=dev).to(torch.bfloat16),
+            torch.randn(1, D, 4 * F, generator=g, device=dev) / D ** 0.5,
+            torch.randn(F, 4 * F, generator=g, device=dev) / F ** 0.5,
+            0.1 * torch.randn(1, 4 * F, generator=g, device=dev)]
+    wgt = torch.randn(T, B, F, generator=g, device=dev)
+    ours = [t.clone().requires_grad_() for t in args]
+    plain = [t.clone().requires_grad_() for t in args]
+    before = cuda_lstm.BACKWARD_ONEDIR.launches
+    (cuda_lstm.BiLSTMLayerFn.apply(*ours, False) * wgt).sum().backward()
+    assert cuda_lstm.BACKWARD_ONEDIR.launches == before + 1
+    (cuda_lstm.scan_layer_tmajor(*plain) * wgt).sum().backward()
+    for o, p in zip(ours, plain):
+        scale = p.grad.float().abs().max().item()
+        assert (o.grad.float() - p.grad.float()).abs().max().item() \
+            <= 2e-2 * scale
+
+
+def test_one_direction_instances_refuse_what_they_do_not_take(dev):
+    """Wh of neither one nor two directions, rows that the directions do
+    not divide, and F % 16 raise before any launch."""
+    launches = [k.launches for k in (cuda_lstm.RECURRENCE_ONEDIR,
+                                     cuda_lstm.PROJECTION_ONEDIR)]
+    with pytest.raises(ValueError):
+        cuda_lstm.bilstm_recurrence_tmajor(
+            torch.zeros(4, 3, 256, device=dev),
+            torch.zeros(192, 256, device=dev))
+    with pytest.raises(ValueError):
+        cuda_lstm.bilstm_projection_tmajor(
+            torch.zeros(4, 3, 16, device=dev, dtype=torch.bfloat16),
+            torch.zeros(3, 16, 256, device=dev),
+            torch.zeros(3, 256, device=dev))
+    with pytest.raises(dispatch.KernelError):
+        cuda_lstm.bilstm_recurrence_tmajor(
+            torch.zeros(4, 3, 400, device=dev),
+            torch.zeros(100, 400, device=dev))
+    assert [k.launches for k in (cuda_lstm.RECURRENCE_ONEDIR,
+                                 cuda_lstm.PROJECTION_ONEDIR)] == launches
+
+
 # WaveNet sampler kernel vs its plain version: bf16 operands and float32
 # sums in both, summed in other orders, so z (rounded to bf16) can land
 # one bf16 ulp apart and move later logits; bound: 4 bf16 ulps (2**-6)

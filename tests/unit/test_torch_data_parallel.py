@@ -499,14 +499,17 @@ def test_shard_batch_gives_the_jax_rows():
 
 
 def test_mesh_without_a_group_and_model_parallel():
+    """Without a group of two ranks, model_parallel=2 raises ValueError,
+    from the handler and the trainer, as the JAX handler does for a mesh
+    that model_parallel does not divide."""
     mesh = torch_mesh.make_data_mesh(device="cpu")
     assert (mesh.size, mesh.rank, mesh.distributed) == (1, 0, False)
     with pytest.raises(ValueError, match="num_devices=2"):
         torch_mesh.make_data_mesh(2, device="cpu")
     handler = ModularModelHandler(device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(ValueError, match="model_parallel=2 does not divide"):
         handler.setup_mesh(model_parallel=2)
     hp = ExtendedHParams.create_hparams("model_parallel=2")
     hp.device = "cpu"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model_parallel=2 needs a group"):
         AcousticModelTrainer(hp, ["a"])

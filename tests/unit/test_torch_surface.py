@@ -41,13 +41,6 @@ EXCLUDED = {
     ("ops/pallas_ctx.py", "<module>"):
         "the Pallas dispatch context; ops/dispatch.py routes the port's "
         "kernels by device",
-    ("parallel/mesh.py", "make_2d_mesh"):
-        "tensor parallelism, not ported (ROADMAP.md queue 1: its kernels "
-        "would need a Wh sharded across cards)",
-    ("parallel/mesh.py", "make_param_shardings"):
-        "tensor parallelism, not ported (ROADMAP.md queue 1)",
-    ("parallel/mesh.py", "make_tp_train_step"):
-        "tensor parallelism, not ported (ROADMAP.md queue 1)",
     ("ops/mlpg.py", "mlpg_jax"):
         "named after its library: the port's is ops/mlpg.py:mlpg_torch",
     ("synth/pipeline.py", "FusedAcousticPipeline.stage_jits"):
@@ -172,6 +165,9 @@ def test_every_exclusion_is_still_needed():
     ("synth/pipeline.py", "<module>"),
     ("parallel/mesh.py", "initialise_multihost"),
     ("egs/ljspeech_demo/run.py", "stage8_wavenet"),
+    ("parallel/mesh.py", "make_2d_mesh"),
+    ("parallel/mesh.py", "make_param_shardings"),
+    ("parallel/mesh.py", "make_tp_train_step"),
 ])
 def test_the_gaps_of_earlier_slices_are_closed(rel, name):
     assert (rel, name) not in missing_names()
