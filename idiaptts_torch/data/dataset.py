@@ -302,6 +302,17 @@ def collate_batch(samples, bucket_boundaries=DEFAULT_BUCKET_BOUNDARIES,
     return batch
 
 
+def batch_shape(batch):
+    """Rows ``B``, padded length ``T`` and ``real_frames`` of a
+    batch-first collated batch, read from its ``_seq_mask``; {} for a
+    batch without one."""
+    mask = batch.get("_seq_mask")
+    if mask is None:
+        return {}
+    return {"B": int(mask.shape[0]), "T": int(mask.shape[1]),
+            "real_frames": int((mask != 0).sum())}
+
+
 def batch_decollate(batch, lengths=None, batch_first=True):
     """Batch dict -> list of per-sample dicts with padding stripped."""
     keys = [k for k in batch if not k.startswith("_")]

@@ -20,7 +20,9 @@ raises :class:`KernelError`.
 
 Each kernel is a :class:`Kernel` object with a plain integer
 ``launches`` counter that goes up by one per successful launch, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels.  With
+:mod:`idiaptts_torch.utils.tracing` on, each call is a
+``dispatch.launch`` span (the host's time in it) naming its kernel.
 """
 
 import ctypes
@@ -34,6 +36,8 @@ import threading
 import time
 
 import torch
+
+from idiaptts_torch.utils import tracing
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -195,21 +199,22 @@ class Kernel:
         _kernels.append(self)
 
     def __call__(self, device, *args):
-        lib = library()
-        if self._fn is None:
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = self._fn(*args, stream)
-        if err != 0:
-            raise KernelError("{} failed to launch: {} (cuda error {})"
-                              .format(self.name,
-                                      lib.idt_error_string(err).decode(),
-                                      err))
-        self.launches += 1
+        with tracing.span("dispatch.launch", kernel=self.name):
+            lib = library()
+            if self._fn is None:
+                fn = getattr(lib, self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._fn = fn
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                err = self._fn(*args, stream)
+            if err != 0:
+                raise KernelError("{} failed to launch: {} (cuda error {})"
+                                  .format(self.name,
+                                          lib.idt_error_string(err)
+                                          .decode(), err))
+            self.launches += 1
 
 
 class HostEntry:

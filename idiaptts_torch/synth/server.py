@@ -10,9 +10,14 @@ its waveform; a partially filled batch launches after ``max_wait_ms``:
   server = SynthesisServer(pipeline, model, max_batch=8, max_wait_ms=5)
   wav = server.submit(question_matrix).result()   # (T * hop,) float32
 
-``stats()`` reports batch occupancy and the realtime factor.
+``stats()`` reports batch occupancy and the realtime factor.  With
+:mod:`idiaptts_torch.utils.tracing` on, the dispatch thread records its
+idle wait, each collect, grouping, batch and resolve as spans; each
+request carries an id and its submit time into the ``server.batch``
+span that serves it.
 """
 
+import itertools
 import logging
 import queue
 import threading
@@ -20,6 +25,8 @@ import time
 from concurrent.futures import Future
 
 import numpy as np
+
+from idiaptts_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -48,7 +55,9 @@ class SynthesisServer:
         self._requests = 0
         self._audio_seconds = 0.0
         self._busy_seconds = 0.0
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._ids = itertools.count()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="SynthesisServer")
         self._thread.start()
 
     # -- client side -----------------------------------------------------
@@ -59,7 +68,8 @@ class SynthesisServer:
         if self._stop.is_set():
             raise RuntimeError("server is shut down")
         future = Future()
-        self._queue.put((np.asarray(questions, np.float32), future))
+        self._queue.put((np.asarray(questions, np.float32), future,
+                         next(self._ids), time.time_ns()))
         return future
 
     def synth(self, questions):
@@ -84,7 +94,9 @@ class SynthesisServer:
 
     def stats(self):
         """Serving counters: batches, requests, mean occupancy, audio
-        seconds produced, busy seconds and the realtime factor."""
+        seconds produced, busy seconds (inside pipeline calls) and the
+        realtime factor: audio seconds over pipeline-call seconds, not
+        over wall time."""
         with self._lock:
             batches = self._batches
             requests = self._requests
@@ -103,49 +115,60 @@ class SynthesisServer:
     def _collect(self):
         """Block for the first request, then sweep the queue until the
         batch is full or ``max_wait`` has passed."""
-        first = self._queue.get()
+        with tracing.span("server.idle"):
+            first = self._queue.get()
         if first is None:
             return []
         batch = [first]
-        deadline = time.time() + self.max_wait
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.time()
-            if remaining <= 0:
-                break
-            try:
-                item = self._queue.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if item is None:
-                break
-            batch.append(item)
+        with tracing.span("server.collect") as span:
+            deadline = time.monotonic() + self.max_wait
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if item is None:
+                    break
+                batch.append(item)
+            span.set(taken=len(batch))
         return batch
+
+    def _group(self, batch):
+        """[(bucket length, questions, requests)] in bucket order.
+        Mixing buckets would pad every utterance to the longest.  Each
+        group's questions are padded with zero rows to the next power of
+        two, which bounds the set of batch shapes the pipeline sees;
+        their outputs are dropped."""
+        bucket = self.pipeline.bucket
+        groups = {}
+        for item in batch:
+            key = int(np.ceil(max(len(item[0]), 1) / bucket) * bucket)
+            groups.setdefault(key, []).append(item)
+        out = []
+        for key, group in sorted(groups.items()):
+            questions = [item[0] for item in group]
+            target = 1
+            while target < len(group):
+                target *= 2
+            questions += [np.zeros_like(questions[0])] * (target - len(group))
+            out.append((key, questions, group))
+        return out
 
     def _loop(self):
         while not self._stop.is_set() or not self._queue.empty():
             batch = self._collect()
             if not batch:
                 continue
-            # Group by padded-length bucket: mixing buckets would pad
-            # every utterance to the longest.
-            bucket = self.pipeline.bucket
-            groups = {}
-            for q, f in batch:
-                key = int(np.ceil(max(len(q), 1) / bucket) * bucket)
-                groups.setdefault(key, []).append((q, f))
-            for _, group in sorted(groups.items()):
-                questions = [q for q, _ in group]
-                futures = [f for _, f in group]
-                # Pad the batch to the next power of two, which bounds the
-                # set of batch shapes the pipeline sees; padding rows are
-                # zeros and their outputs are dropped.
-                n = len(questions)
-                target = 1
-                while target < n:
-                    target *= 2
-                for _ in range(target - n):
-                    questions.append(np.zeros_like(questions[0]))
-                t0 = time.time()
+            with tracing.span("server.group") as span:
+                groups = self._group(batch)
+                span.set(groups=len(groups))
+            for T, questions, group in groups:
+                futures = [item[1] for item in group]
+                n = len(group)
+                t0 = time.time_ns()
                 try:
                     wavs = self.pipeline(self.params, questions)
                 except Exception as exc:  # resolve, never deadlock
@@ -153,15 +176,22 @@ class SynthesisServer:
                     for future in futures:
                         future.set_exception(exc)
                     continue
-                busy = time.time() - t0
+                t1 = time.time_ns()
+                if tracing.enabled():
+                    tracing.add(
+                        "server.batch", t0, t1, rows=len(questions),
+                        real_rows=n, T=T,
+                        real_frames=sum(len(item[0]) for item in group),
+                        requests=[[item[2], item[3]] for item in group])
                 fs = self.pipeline.fs
                 with self._lock:
                     self._batches += 1
-                    self._requests += len(group)
-                    self._busy_seconds += busy
+                    self._requests += n
+                    self._busy_seconds += (t1 - t0) / 1e9
                     self._audio_seconds += sum(
                         len(w) for w in wavs[:n]) / float(fs)
-                for future, wav in zip(futures, wavs[:n]):
-                    future.set_result(wav)
+                with tracing.span("server.resolve", n=n):
+                    for future, wav in zip(futures, wavs[:n]):
+                        future.set_result(wav)
         # Drain: reject anything still queued after shutdown.
         self._drain_rejected()

@@ -80,12 +80,14 @@ import re
 import numpy as np
 import torch
 
+from idiaptts_torch.data.dataset import batch_shape
 from idiaptts_torch.models.config import ModelConfig
 from idiaptts_torch.models.rnn_dyn import _BatchNorm
 from idiaptts_torch.ops.dispatch import resolve_device
 from idiaptts_torch.parallel import mesh as mesh_lib
 from idiaptts_torch.train.model_handler_base import ModelHandler
 from idiaptts_torch.train.schedulers import create_scheduler
+from idiaptts_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -443,12 +445,15 @@ class ModularModelHandler(ModelHandler):
         sharded = data_mesh is not None and data_mesh.distributed \
             and self._shards(data, lengths)
         with self._synced_batch_norm(sharded):
-            if sharded:
-                out = self._sharded_forward(data, lengths)
-            else:
-                out = self._apply_model(data, lengths, training=True)
-            total, loss_values = self._losses_total(out, self.total_steps)
-            total.backward()
+            with tracing.span("train.forward", device=self.device):
+                if sharded:
+                    out = self._sharded_forward(data, lengths)
+                else:
+                    out = self._apply_model(data, lengths, training=True)
+                total, loss_values = self._losses_total(out,
+                                                        self.total_steps)
+            with tracing.span("train.backward", device=self.device):
+                total.backward()
         named = [(n, p) for n, p in self.model.named_parameters()
                  if p.requires_grad]
         for _, p in named:
@@ -456,13 +461,25 @@ class ModularModelHandler(ModelHandler):
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for _, p in named]
         params = [p for _, p in named]
-        if self.tensor_parallel:
-            mesh_lib.reduce_gradients(params, self.mesh, sharded)
-        elif sharded:
-            # Each rank's gradient is its rows' part of the global one.
-            mesh_lib.all_reduce_gradients(params, data_mesh)
-        elif data_mesh is not None and data_mesh.distributed:
-            mesh_lib.broadcast_flat(grads, data_mesh)
+        if data_mesh is not None:
+            with tracing.span("train.reduce", device=self.device):
+                if self.tensor_parallel:
+                    mesh_lib.reduce_gradients(params, self.mesh, sharded)
+                elif sharded:
+                    # Each rank's gradient is its rows' part of the
+                    # global one.
+                    mesh_lib.all_reduce_gradients(params, data_mesh)
+                elif data_mesh.distributed:
+                    mesh_lib.broadcast_flat(grads, data_mesh)
+        with tracing.span("train.optimiser", device=self.device):
+            grad_norm = self._update(named, grads, params, sharded,
+                                     data_mesh)
+        return total.detach(), loss_values, grad_norm
+
+    def _update(self, named, grads, params, sharded, data_mesh):
+        """The optax chain's gradient transforms, the optimiser step, the
+        batch statistics' exchange and the EMA; returns the gradient
+        norm."""
         with torch.no_grad():
             if self.replace_inf_grads_by_zero:
                 for g in grads:
@@ -496,7 +513,7 @@ class ModularModelHandler(ModelHandler):
             mesh_lib.broadcast_flat(stats, data_mesh)
         if self.ema is not None:
             self.ema.update(self.model)
-        return total.detach(), loss_values, grad_norm
+        return grad_norm
 
     def process_batches(self, batches, training=True, step_offset=None,
                         current_epoch=None):
@@ -505,37 +522,52 @@ class ModularModelHandler(ModelHandler):
         self.model.train(training)
         totals, counts = {}, 0
         total_sum = 0.0
-        for batch in batches:
-            data, lengths = self._batch_to_model_input(batch)
-            if training:
-                lr = self._current_lr()
-                total, loss_values, grad_norm = self._train_step(
-                    data, lengths, lr)
-                self.total_steps += 1
-            else:
-                with torch.no_grad():
-                    out = self._apply_model(data, lengths, training=False)
-                    total, loss_values = self._losses_total(
-                        out, self.total_steps)
-                grad_norm = torch.zeros((), device=self.device)
-            # One device-to-host transfer per batch.
-            names = list(loss_values)
-            host = torch.stack(
-                [total.to(torch.float32), grad_norm.to(torch.float32)]
-                + [torch.as_tensor(loss_values[n], dtype=torch.float32,
-                                   device=self.device).detach()
-                   for n in names]).tolist()
-            total = host[0]
-            if training:
-                self.last_grad_norm = host[1]
-            if math.isnan(total):
+        # Training steps are traced (``train.*``); evaluation is not.
+        span = tracing.span if training else _untraced
+        batches = iter(batches)
+        while True:
+            with span("train.fetch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with span("train.step") as step:
+                if tracing.enabled():
+                    step.set(**batch_shape(batch))
+                with span("train.upload", device=self.device):
+                    data, lengths = self._batch_to_model_input(batch)
                 if training:
-                    raise ValueError("Loss is NaN.")
-                logger.warning("NaN loss in evaluation.")
-            total_sum += total
-            for name, value in zip(names, host[2:]):
-                totals[name] = totals.get(name, 0.0) + value
-            counts += 1
+                    lr = self._current_lr()
+                    total, loss_values, grad_norm = self._train_step(
+                        data, lengths, lr)
+                    self.total_steps += 1
+                else:
+                    with torch.no_grad():
+                        out = self._apply_model(data, lengths,
+                                                training=False)
+                        total, loss_values = self._losses_total(
+                            out, self.total_steps)
+                    grad_norm = torch.zeros((), device=self.device)
+                # One device-to-host transfer per batch.
+                names = list(loss_values)
+                with span("train.sync"):
+                    host = torch.stack(
+                        [total.to(torch.float32),
+                         grad_norm.to(torch.float32)]
+                        + [torch.as_tensor(loss_values[n],
+                                           dtype=torch.float32,
+                                           device=self.device).detach()
+                           for n in names]).tolist()
+                total = host[0]
+                if training:
+                    self.last_grad_norm = host[1]
+                if math.isnan(total):
+                    if training:
+                        raise ValueError("Loss is NaN.")
+                    logger.warning("NaN loss in evaluation.")
+                total_sum += total
+                for name, value in zip(names, host[2:]):
+                    totals[name] = totals.get(name, 0.0) + value
+                counts += 1
         if counts == 0:
             return np.nan, {}
         return total_sum / counts, {k: v / counts for k, v in totals.items()}
@@ -690,6 +722,10 @@ class ModularModelHandler(ModelHandler):
             raise FileNotFoundError("No checkpoint in " + out_dir)
         newest = max(candidates, key=os.path.getctime)
         return os.path.basename(newest)[len("params_"):]
+
+
+def _untraced(name, device=False, **attrs):
+    return tracing.NOOP
 
 
 def _write_text(path, text):

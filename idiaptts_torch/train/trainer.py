@@ -61,10 +61,12 @@ import torch
 
 from idiaptts_torch.data.dataset import (DatareadersDataset,
                                          WindowingDatareadersDataset,
-                                         batch_decollate, collate_batch)
+                                         batch_decollate, batch_shape,
+                                         collate_batch)
 from idiaptts_torch.hparams import ExtendedHParams
 from idiaptts_torch.parallel import mesh as mesh_lib
 from idiaptts_torch.train.handler import ModularModelHandler
+from idiaptts_torch.utils import tracing
 from idiaptts_torch.utils.misc import (get_device_memory_stats,
                                        get_memory_usage_mb, log_git_hash)
 
@@ -282,7 +284,9 @@ class ModularTrainer:
         batches ahead so host loading overlaps the device's work.  A
         producer error is re-raised to the consumer.  A dataset with
         ``work_items`` (the windowing dataset: one item per window) is
-        batched over its items."""
+        batched over its items.  Traced: ``loader.collate`` a batch (on
+        the producing thread) and ``loader.wait`` a hand-over (on the
+        consumer's)."""
         if hasattr(dataset, "work_items"):
             ids = list(dataset.work_items(id_list))
             fetch = dataset.get_work_item
@@ -295,7 +299,11 @@ class ModularTrainer:
         def produce():
             for start in range(0, len(ids), batch_size):
                 chunk = ids[start:start + batch_size]
-                yield collate_batch([fetch(i)[0] for i in chunk])
+                with tracing.span("loader.collate") as span:
+                    batch = collate_batch([fetch(i)[0] for i in chunk])
+                    if tracing.enabled():
+                        span.set(**batch_shape(batch))
+                yield batch
 
         if not prefetch:
             yield from produce()
@@ -325,11 +333,13 @@ class ModularTrainer:
             finally:
                 put(stop)
 
-        thread = threading.Thread(target=worker, daemon=True)
+        thread = threading.Thread(target=worker, daemon=True,
+                                  name="loader")
         thread.start()
         try:
             while True:
-                batch = q.get()
+                with tracing.span("loader.wait"):
+                    batch = q.get()
                 if batch is stop:
                     break
                 yield batch

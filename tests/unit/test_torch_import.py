@@ -82,6 +82,7 @@ MODULES = [
     "idiaptts_torch.train.classification",
     "idiaptts_torch.utils.misc",
     "idiaptts_torch.utils.equality",
+    "idiaptts_torch.utils.tracing",
     "idiaptts_torch.ops.enhancement",
     "idiaptts_torch.data.audio_tools",
     "idiaptts_torch.data.convert_to_npz",
