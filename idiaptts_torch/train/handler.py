@@ -142,6 +142,8 @@ class ModularModelHandler(ModelHandler):
         self.last_grad_norm = None
         self.mesh = None
         self.generator = torch.Generator(device=self.device).manual_seed(42)
+        self._copy_stream = None
+        self._uploads = {"ahead": 0, "inline": 0, "ready": 0}
 
     # -- data and tensor parallelism -----------------------------------------
     def setup_mesh(self, num_devices=None, axis_name="data",
@@ -160,6 +162,7 @@ class ModularModelHandler(ModelHandler):
         self.mesh = mesh_lib.make_2d_mesh(
             num_devices, model_parallel, (axis_name, "model"), self.device)
         self.device = self.mesh.device
+        self._copy_stream = None
         self.generator = torch.Generator(device=self.device).manual_seed(
             42 + self.mesh.data.rank)
         if self.model is not None:
@@ -283,21 +286,78 @@ class ModularModelHandler(ModelHandler):
         self._shard_model()
         return dict(self.model.named_parameters())
 
-    def _batch_to_model_input(self, batch):
-        data = {k: torch.as_tensor(v, device=self.device)
-                for k, v in batch.items()
+    def _batch_to_model_input(self, batch, move=None):
+        """``(data, lengths)`` of a collated batch, each array through
+        ``move`` (default: ``torch.as_tensor`` on the handler's device,
+        zero-copy on the CPU)."""
+        move = move or (lambda v: torch.as_tensor(v, device=self.device))
+        data = {k: move(v) for k, v in batch.items()
                 if not k.startswith("_") or k.startswith("_seq_mask")}
         lengths = None
         lengths_dict = batch.get("_lengths")
         if lengths_dict:
-            arrays = {k: torch.as_tensor(np.asarray(v, np.int64),
-                                         device=self.device)
+            arrays = {k: move(np.asarray(v, np.int64))
                       for k, v in lengths_dict.items()}
             # Multi-rate batches keep per-feature lengths; modules select
             # their own via ``select_lengths``.
             lengths = next(iter(arrays.values())) if len(arrays) == 1 \
                 else arrays
         return data, lengths
+
+    def _stage(self, batch, ahead):
+        """Start the batch's upload; ``(model input, pending)`` for
+        :meth:`_receive`.  On a CUDA device every host array is copied
+        into page-locked memory (the caching host allocator reuses a
+        block only once the copy recorded on it has finished) and from
+        there, without blocking, on the handler's copy stream; pending
+        is the event recorded after the copies and the device tensors.
+        Tensors already on a device, made there on the compute stream,
+        are used as they are.  Elsewhere the input is the arrays
+        themselves and pending is None.  ``ahead``: issued while the
+        previous step runs (counted in :meth:`upload_counts`)."""
+        self._uploads["ahead" if ahead else "inline"] += 1
+        if self.device.type != "cuda":
+            return self._batch_to_model_input(batch), None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        uploaded = []
+
+        def move(v):
+            if torch.is_tensor(v) and v.device.type != "cpu":
+                return v.to(self.device)
+            host = torch.as_tensor(v).pin_memory()
+            with torch.cuda.stream(self._copy_stream):
+                uploaded.append(host.to(self.device, non_blocking=True))
+            return uploaded[-1]
+
+        inputs = self._batch_to_model_input(batch, move)
+        return inputs, (self._copy_stream.record_event(), uploaded)
+
+    def _receive(self, staged):
+        """``(model input, ready)`` of :meth:`_stage`: the current stream
+        made to wait for the copies, each tensor marked as used there (so
+        the caching allocator keeps its memory until that stream's work
+        on it has run); ready: the copies had already finished (none
+        pending counts as finished)."""
+        inputs, pending = staged
+        ready = True
+        if pending is not None:
+            event, uploaded = pending
+            ready = event.query()
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in uploaded:
+                t.record_stream(stream)
+        self._uploads["ready"] += ready
+        return inputs, ready
+
+    def upload_counts(self):
+        """{"ahead": batch uploads issued while the previous step ran,
+        "inline": those issued at the step itself (the first batch of
+        each :meth:`process_batches` call), "ready": those whose copies
+        had finished when their step came to wait for them}, over the
+        handler's life."""
+        return dict(self._uploads)
 
     # -- optimiser / scheduler / losses -----------------------------------
     def set_optimiser(self, hparams):
@@ -518,23 +578,33 @@ class ModularModelHandler(ModelHandler):
     def process_batches(self, batches, training=True, step_offset=None,
                         current_epoch=None):
         """One pass over collated batches; returns the mean total loss and
-        the per-loss means.  Training updates the parameters per batch."""
+        the per-loss means.  Training updates the parameters per batch.
+
+        The batches are read one ahead: once a step is launched, the next
+        batch is fetched and its upload issued (:meth:`_stage`) before
+        the step's one read back, so on a CUDA device its copy runs on
+        the copy stream beside the step's kernels.  Every batch is
+        stepped once, in order; an exception from the iterator is raised
+        after the step already launched has been read back."""
         self.model.train(training)
         totals, counts = {}, 0
         total_sum = 0.0
         # Training steps are traced (``train.*``); evaluation is not.
         span = tracing.span if training else _untraced
         batches = iter(batches)
-        while True:
-            with span("train.fetch"):
-                batch = next(batches, None)
-            if batch is None:
-                break
+        with span("train.fetch"):
+            batch = next(batches, None)
+        staged = None if batch is None else self._stage(batch, ahead=False)
+        ahead = False
+        while batch is not None:
             with span("train.step") as step:
                 if tracing.enabled():
                     step.set(**batch_shape(batch))
-                with span("train.upload", device=self.device):
-                    data, lengths = self._batch_to_model_input(batch)
+                with span("train.upload", device=self.device,
+                          ahead=ahead) as upload:
+                    (data, lengths), ready = self._receive(staged)
+                    if tracing.enabled():
+                        upload.set(ready=ready)
                 if training:
                     lr = self._current_lr()
                     total, loss_values, grad_norm = self._train_step(
@@ -547,6 +617,17 @@ class ModularModelHandler(ModelHandler):
                         total, loss_values = self._losses_total(
                             out, self.total_steps)
                     grad_norm = torch.zeros((), device=self.device)
+                error = None
+                with span("train.fetch"):
+                    try:
+                        batch = next(batches, None)
+                    except Exception as e:  # raised after the read back
+                        error, batch = e, None
+                if batch is not None:
+                    with span("train.stage") as stage:
+                        if tracing.enabled():
+                            stage.set(**batch_shape(batch))
+                        staged = self._stage(batch, ahead=True)
                 # One device-to-host transfer per batch.
                 names = list(loss_values)
                 with span("train.sync"):
@@ -568,6 +649,9 @@ class ModularModelHandler(ModelHandler):
                 for name, value in zip(names, host[2:]):
                     totals[name] = totals.get(name, 0.0) + value
                 counts += 1
+                if error is not None:
+                    raise error
+            ahead = True
         if counts == 0:
             return np.nan, {}
         return total_sum / counts, {k: v / counts for k, v in totals.items()}

@@ -290,9 +290,10 @@ def test_train_step_spans_and_identical_training():
     for step in steps:
         children = sorted((s for s in spans if s["parent"] == step["id"]),
                           key=lambda s: s["t0_ns"])
+        # One batch a call: the fetch that reads ahead finds the end.
         assert [s["name"] for s in children] == [
             "train.upload", "train.forward", "train.backward",
-            "train.optimiser", "train.sync"]
+            "train.optimiser", "train.fetch", "train.sync"]
         assert all(step["t0_ns"] <= c["t0_ns"] <= c["t1_ns"]
                    <= step["t1_ns"] for c in children)
         assert set(step["attrs"]) == {"B", "T", "real_frames"}
@@ -303,8 +304,8 @@ def test_train_step_spans_and_identical_training():
     assert collates and {s["thread"] for s in collates} == {"loader"}
     assert {tuple(sorted(s["attrs"])) for s in collates} == {
         ("B", "T", "real_frames")}
-    # A fetch a step (the loader's wait inside it) and one that finds
-    # the batches ended.
+    # A fetch a call for its first batch (the loader's wait inside it)
+    # and one inside its step that finds the batches ended.
     assert len(by_name(spans, "train.fetch")) == 4
     assert {(n, p) for n, p in parent_names(spans) if n == "loader.wait"} \
         == {("loader.wait", "train.fetch")}
