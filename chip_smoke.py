@@ -232,6 +232,18 @@ other error raises at once):
    wrote it) loaded into a one-process handler: the same parameters,
    its forward against the TP forward.  ``chip_smoke.py --phase15``
    runs phases 1, 2 and 15 alone.
+16. The WaveNet training kernels at the ``wavenet.train`` benchmark
+   cell's shapes (32 crops in the 8192 bucket, r9y9 widths: R = G = 512,
+   S = 256, kernel 3; ``WN_TRAIN_SHAPES``): the gate (``wavenet_gate_fwd``
+   / ``_bwd``), the taps (``wavenet_taps`` / ``_bwd``) and the
+   skip/residual update (``wavenet_residual`` / ``_bwd``) through their
+   wrappers against their plain versions on the same card tensors (the
+   gate's z and dh within one bf16 ulp, everything else ``torch.equal``),
+   with CUDA-event times for both and each kernel's bytes bound.  Then
+   one ``ModularModelHandler`` step of the r9y9 WaveNet (24 layers) on 32
+   crops of 8000 samples, the counters reset just before and read just
+   after: each kernel launches once a block; the step's ms and peak
+   memory.  ``chip_smoke.py --phase16`` runs phases 1, 2 and 16 alone.
 
 The last three lines of standard output are the kernels JSON (every
 kernel with its bound, its plain version's and the library call's time),
@@ -295,6 +307,10 @@ NARROW_TRAIN_B = 8
 TRAIN_D_IN, TRAIN_D_OUT = 409, 67
 TRAIN_EPOCHS = 3
 
+# The WaveNet training kernels replace no TPU kernel: XLA fused the gate,
+# the taps and the skip/residual update of the JAX package's
+# teacher-forced ResidualBlock into its convolutions.
+WN_XLA = "none (XLA fusion in idiaptts_tpu/models/wavenet.py:25)"
 # Where each hand kernel comes from, for the kernels JSON line.  The
 # projection kernel is the projection half of both _bilstm_layer_kernel
 # (K6, :590) and _bilstm_layer_kernel_train (K7, :742); the training
@@ -325,6 +341,13 @@ KERNEL_SOURCES = {
         "idiaptts_tpu/ops/pallas_lstm.py:161"),
     "bilstm_bwd_onedir": ("idiaptts_torch/csrc/bilstm_bwd.cu",
                           "idiaptts_tpu/ops/pallas_lstm.py:264"),
+    "wavenet_gate_fwd": ("idiaptts_torch/csrc/wavenet_gate.cu", WN_XLA),
+    "wavenet_gate_bwd": ("idiaptts_torch/csrc/wavenet_gate.cu", WN_XLA),
+    "wavenet_taps": ("idiaptts_torch/csrc/wavenet_block.cu", WN_XLA),
+    "wavenet_taps_bwd": ("idiaptts_torch/csrc/wavenet_block.cu", WN_XLA),
+    "wavenet_residual": ("idiaptts_torch/csrc/wavenet_block.cu", WN_XLA),
+    "wavenet_residual_bwd": ("idiaptts_torch/csrc/wavenet_block.cu",
+                             WN_XLA),
 }
 SERVE_KERNELS = ("banded_solve", "bilstm_proj", "bilstm_recurrence")
 TRAIN_KERNELS = ("bilstm_proj", "bilstm_recurrence_train", "bilstm_bwd",
@@ -450,6 +473,19 @@ SMALL_TOL = 2.0 ** -6
 PEAK_BF16_FLOPS = 989e12     # tensor cores, bf16 operands
 PEAK_F32_FLOPS = 67e12       # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+
+# Phase 16: the wavenet.train cell's model (port_bench/configs/
+# r9y9_wavenet_mulaw.json) and its shapes (B, T, dilation): 32 crops in
+# the 8192 bucket at the last stack's widest dilation, and the card
+# tests' B = 2 at the first block's.  Crops of 8000 samples a row.
+WN_R9Y9 = dict(out_channels=256, residual_channels=512, gate_channels=512,
+               skip_channels=256, num_layers=24, num_stacks=4,
+               kernel_size=3, cond_channels=23)
+WN_TRAIN_SHAPES = ((32, 8192, 32), (2, 8192, 1))
+WN_TRAIN_CROP = 8000
+WN_TRAIN_KERNELS = ("wavenet_gate_fwd", "wavenet_gate_bwd", "wavenet_taps",
+                    "wavenet_taps_bwd", "wavenet_residual",
+                    "wavenet_residual_bwd")
 
 # Phase 12 (feature extraction): the corpora (wav directory, sample
 # rate), the coded-spectrum widths (the recipes' NUM_SPS with deltas, the
@@ -4922,6 +4958,227 @@ def tensor_parallel(torch, device, card, workdir):
     return out
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+def _bf16_ulps(torch, a, b):
+    """Largest difference of ``a`` and ``b`` in bf16 ulps of the larger
+    magnitude."""
+    a, b = a.float(), b.float()
+    ulp = bf16_ulp(torch, torch.maximum(a.abs(), b.abs()))
+    return ((a - b).abs() / ulp).max().item()
+
+
+def _max_abs(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def wavenet_block_inputs(torch, gen, B, T):
+    """Seeded card tensors of one block at the r9y9 widths: the float32
+    stream x and its gradient dx', the bf16 products P1, P2 and their
+    biases, the gradients dz and dtaps, the [skip | residual] product P
+    with its bias, the skip sum and its gradient."""
+    R, G = WN_R9Y9["residual_channels"], WN_R9Y9["gate_channels"]
+    S, k = WN_R9Y9["skip_channels"], WN_R9Y9["kernel_size"]
+    dev = gen.device
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)).to(
+            dtype)
+
+    bf16 = torch.bfloat16
+    return dict(
+        x=randn(B, T, R), dxo=randn(B, T, R),
+        p1=randn(B, T, G, scale=2.0, dtype=bf16),
+        p2=randn(B, T, G, scale=2.0, dtype=bf16),
+        b1=randn(G, scale=0.3), b2=randn(G, scale=0.3),
+        dz=randn(B, T, G // 2, dtype=bf16),
+        dtaps=randn(B, T, k * R, dtype=bf16),
+        p=randn(B, T, S + R, dtype=bf16), bsr=randn(S + R, scale=0.1),
+        skips=randn(B, T, S, dtype=bf16), dskips=randn(B, T, S, dtype=bf16))
+
+
+def wavenet_kernel_bytes(B, T):
+    """{kernel: HBM bytes} at one block's (B, T): each input read and each
+    output written once (bf16 2 bytes, the float32 stream 4)."""
+    R, G = WN_R9Y9["residual_channels"], WN_R9Y9["gate_channels"]
+    S, k = WN_R9Y9["skip_channels"], WN_R9Y9["kernel_size"]
+    row = {"wavenet_gate_fwd": 2 * (2 * G + G + G // 2),
+           "wavenet_gate_bwd": 2 * (G + G // 2 + G),
+           "wavenet_taps": 4 * R + 2 * k * R,
+           "wavenet_taps_bwd": 2 * k * R + 4 * R + 4 * R,
+           "wavenet_residual": 2 * (S + R) + 4 * R + 2 * S + 4 * R + 2 * S,
+           "wavenet_residual_bwd": 4 * R + 2 * S + 2 * (S + R)}
+    return {name: B * T * n for name, n in row.items()}
+
+
+def wavenet_train_kernel_checks(torch, device, reps=20, plain_reps=3):
+    """Phase 16 (a): the six WaveNet training kernels through their
+    wrappers against their plain versions on the same card tensors, at
+    each of ``WN_TRAIN_SHAPES``; CUDA-event times of both.  Returns
+    {kernel name: {shape tag: measurements}}."""
+    from idiaptts_torch.ops import wavenet_block as wb
+    from idiaptts_torch.ops import wavenet_gate as wg
+    k = WN_R9Y9["kernel_size"]
+    gen = torch.Generator(device=device).manual_seed(1616)
+    out = {name: {} for name in WN_TRAIN_KERNELS}
+    for B, T, d in WN_TRAIN_SHAPES:
+        shape = "rows={}x{},R={},G={},S={},k={},d={}".format(
+            B, T, WN_R9Y9["residual_channels"], WN_R9Y9["gate_channels"],
+            WN_R9Y9["skip_channels"], k, d)
+        t = wavenet_block_inputs(torch, gen, B, T)
+        h, z = wg.gate(t["p1"], t["p2"], t["b1"], t["b2"])
+        h_p, z_p = wg.gate_plain(t["p1"], t["p2"], t["b1"], t["b2"])
+        dh = wg.gate_backward(h, t["dz"])
+        dh_p = wg.gate_backward_plain(h, t["dz"])
+        taps = wb.taps(t["x"], k, d)
+        taps_p = wb.taps_plain(t["x"], k, d)
+        dx = wb.taps_backward(t["dtaps"], t["dxo"], k, d)
+        dx_p = wb.taps_backward_plain(t["dtaps"], t["dxo"], k, d)
+        res = {first: wb.residual(t["p"], t["bsr"], t["x"],
+                                  None if first else t["skips"])
+               for first in (True, False)}
+        res_p = {first: wb.residual_plain(t["p"], t["bsr"], t["x"],
+                                          None if first else t["skips"])
+                 for first in (True, False)}
+        dp = wb.residual_backward(t["dxo"], t["dskips"])
+        dp_p = wb.residual_backward_plain(t["dxo"], t["dskips"])
+        torch.cuda.synchronize()
+        # The gate's tanhf / expf against PyTorch's CUDA tanh and sigmoid
+        # may differ by a float32 ulp, which moves a bf16 rounding by at
+        # most one bf16 ulp; everything else is the same float32
+        # operations in the same order, each rounded alone.
+        agree = {
+            "wavenet_gate_fwd": torch.equal(h, h_p)
+            and _bf16_ulps(torch, z, z_p) <= 1.0,
+            "wavenet_gate_bwd": _bf16_ulps(torch, dh, dh_p) <= 1.0,
+            "wavenet_taps": torch.equal(taps, taps_p),
+            "wavenet_taps_bwd": torch.equal(dx, dx_p),
+            "wavenet_residual": all(
+                torch.equal(res[f][0], res_p[f][0])
+                and torch.equal(res[f][1], res_p[f][1]) for f in res),
+            "wavenet_residual_bwd": torch.equal(dp, dp_p)}
+        errs = {
+            "wavenet_gate_fwd": max(_max_abs(h, h_p), _max_abs(z, z_p)),
+            "wavenet_gate_bwd": _max_abs(dh, dh_p),
+            "wavenet_taps": _max_abs(taps, taps_p),
+            "wavenet_taps_bwd": _max_abs(dx, dx_p),
+            "wavenet_residual": max(max(_max_abs(res[f][i], res_p[f][i])
+                                        for i in (0, 1)) for f in res),
+            "wavenet_residual_bwd": _max_abs(dp, dp_p)}
+        for name, ok in agree.items():
+            if not ok:
+                fail("{} differs from its plain version beyond the bound "
+                     "({}): max|d| {:.3e}".format(name, shape, errs[name]))
+        calls = {
+            "wavenet_gate_fwd": (
+                lambda: wg.gate(t["p1"], t["p2"], t["b1"], t["b2"]),
+                lambda: wg.gate_plain(t["p1"], t["p2"], t["b1"], t["b2"])),
+            "wavenet_gate_bwd": (
+                lambda: wg.gate_backward(h, t["dz"]),
+                lambda: wg.gate_backward_plain(h, t["dz"])),
+            "wavenet_taps": (lambda: wb.taps(t["x"], k, d),
+                             lambda: wb.taps_plain(t["x"], k, d)),
+            "wavenet_taps_bwd": (
+                lambda: wb.taps_backward(t["dtaps"], t["dxo"], k, d),
+                lambda: wb.taps_backward_plain(t["dtaps"], t["dxo"], k, d)),
+            "wavenet_residual": (
+                lambda: wb.residual(t["p"], t["bsr"], t["x"], t["skips"]),
+                lambda: wb.residual_plain(t["p"], t["bsr"], t["x"],
+                                          t["skips"])),
+            "wavenet_residual_bwd": (
+                lambda: wb.residual_backward(t["dxo"], t["dskips"]),
+                lambda: wb.residual_backward_plain(t["dxo"], t["dskips"]))}
+        nbytes = wavenet_kernel_bytes(B, T)
+        for name, (kernel, plain) in calls.items():
+            ms = cuda_ms(torch, kernel, reps)
+            bound_ms, bound_by = bound(0.0, PEAK_BF16_FLOPS, nbytes[name])
+            out[name][B] = dict(
+                shape=shape, max_abs_err=errs[name], ms=ms,
+                plain_ms=cuda_ms(torch, plain, plain_reps),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, matches_plain=agree[name])
+            log("  {:<21s} {:<40s} kernel {:8.4f} ms | plain {:8.4f} ms | "
+                "bound {:7.4f} ms ({}, {:.0%}) | max|d| {:.2e}".format(
+                    name, shape, ms, out[name][B]["plain_ms"], bound_ms,
+                    bound_by, bound_ms / ms, errs[name]))
+        del t, h, z, h_p, z_p, dh, dh_p, taps, taps_p, dx, dx_p, res, \
+            res_p, dp, dp_p, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def wavenet_train_step(torch, device, card, seed=21):
+    """Phase 16 (b): ModularModelHandler steps of the r9y9 WaveNet on
+    wavenet.train's batch (32 seeded crops of ``WN_TRAIN_CROP`` samples,
+    bucketed to 8192), Adam and the masked cross-entropy as
+    WaveNetVocoderTrainer sets them: one warm-up step, one counted step
+    (every kernel of ``WN_TRAIN_KERNELS`` once a block), then three timed
+    with CUDA events, and the peak memory."""
+    from idiaptts_torch.data.dataset import collate_batch
+    from idiaptts_torch.hparams import ExtendedHParams
+    from idiaptts_torch.models.losses import NamedLoss
+    from idiaptts_torch.models.wavenet import WaveNetWrapper
+    from idiaptts_torch.train.handler import ModularModelHandler
+    B, T = WN_TRAIN_SHAPES[0][:2]
+    handler = ModularModelHandler(device=device)
+    handler.create_model(WaveNetWrapper.Config(
+        input_names=("cond_features",), output_names=("pred_logits",),
+        target_name="target_quantised", **WN_R9Y9), seed=seed)
+    hp = ExtendedHParams.create_hparams()
+    hp.learning_rate = 1e-3
+    handler.set_optimiser(hp)
+    handler.set_losses([NamedLoss.Config(
+        "ce", "CrossEntropyLoss", ("pred_logits", "target_quantised"),
+        seq_mask="_seq_mask", reduction="mean")])
+    rng = np.random.default_rng(seed)
+    C, Q = WN_R9Y9["cond_channels"], WN_R9Y9["out_channels"]
+    batch = collate_batch([
+        {"cond_features": rng.standard_normal(
+            (WN_TRAIN_CROP, C)).astype(np.float32),
+         "target_quantised": rng.integers(0, Q, (WN_TRAIN_CROP, 1)).astype(
+             np.float32)} for _ in range(B)])
+    if batch["cond_features"].shape[1] != T:
+        fail("phase 16: the crops were bucketed to {}, not {}".format(
+            batch["cond_features"].shape[1], T))
+    losses = [handler.process_batches([batch])[0]]
+    torch.cuda.reset_peak_memory_stats(device)
+    loss, launches = counted(torch, lambda: handler.process_batches(
+        [batch])[0])
+    losses.append(loss)
+    peak = torch.cuda.max_memory_allocated(device)
+    ms = cuda_ms(torch, lambda: handler.process_batches([batch]), 3)
+    layers = WN_R9Y9["num_layers"]
+    wrong = {name: launches.get(name, 0) for name in WN_TRAIN_KERNELS
+             if launches.get(name, 0) != layers}
+    if wrong:
+        fail("phase 16: WaveNet kernels not launched once a block ({}) in "
+             "a train step: {}".format(layers, wrong))
+    if not all(np.isfinite(losses)):
+        fail("phase 16: a WaveNet train step's loss is not finite: "
+             "{}".format(losses))
+    samples = B * WN_TRAIN_CROP
+    log("  r9y9 WaveNet train step B={} T={}: losses {} | {:.2f} ms, {:.0f} "
+        "samples/s | peak {:.2f} GB | launches {} [{}]".format(
+            B, T, ["{:.4f}".format(v) for v in losses], ms,
+            samples / (ms / 1e3), peak / 1e9,
+            json.dumps({n: launches.get(n, 0) for n in WN_TRAIN_KERNELS}),
+            card))
+    del handler, batch
+    torch.cuda.empty_cache()
+    return dict(B=B, T=T, losses=losses, ms=ms,
+                samples_per_s=samples / (ms / 1e3), peak_bytes=peak,
+                launches=launches)
+
+
+def wavenet_train_kernels(torch, device, card):
+    """Phase 16: (a) the kernels at the cell's shapes, (b) the step."""
+    log("== phase 16: WaveNet training kernels at wavenet.train's shapes "
+        "[{}]".format(card))
+    kernels = wavenet_train_kernel_checks(torch, device)
+    return dict(kernels=kernels, step=wavenet_train_step(torch, device,
+                                                         card))
+
+
 def require_launches(launches, names, path):
     """Every kernel of a path must have launched during its run."""
     missing = [k for k in names if launches.get(k, 0) < 1]
@@ -4943,7 +5200,8 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     from idiaptts_torch.ops import (cuda_lstm, cuda_mlpg,  # noqa: F401
-                                    cuda_wavenet, dispatch)
+                                    cuda_wavenet, dispatch, wavenet_block,
+                                    wavenet_gate)
 
     log("== phase 1: environment")
     card = environment(torch)
@@ -4955,6 +5213,8 @@ def main():
 
     if len(sys.argv) > 1 and sys.argv[1] == "--phase15":
         return _phase15_alone(torch, device, card)
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase16":
+        return _phase16_alone(torch, device, card)
 
     log("== phase 3: kernels against their plain versions [{}]".format(
         card))
@@ -5013,6 +5273,20 @@ def _phase15_alone(torch, device, card):
             log("  ", message)
         return 1
     print(json.dumps({"phase15": tp}, default=float))
+    print(card)
+    return 0
+
+
+def _phase16_alone(torch, device, card):
+    """``chip_smoke.py --phase16``: phases 1, 2 and 16 only; prints phase
+    16's results as one JSON line and the card's name and power limit."""
+    wtrain = wavenet_train_kernels(torch, device, card)
+    if FAILURES:
+        log("== {} check(s) failed:".format(len(FAILURES)))
+        for message in FAILURES:
+            log("  ", message)
+        return 1
+    print(json.dumps({"phase16": wtrain}, default=float))
     print(card)
     return 0
 
@@ -5082,6 +5356,8 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
     tp = tensor_parallel(torch, device, card, workdir)
     tp_runs = {k: v for k, v in tp.items()
                if isinstance(v, dict) and "launches_by_rank" in v}
+    torch.cuda.empty_cache()
+    wtrain = wavenet_train_kernels(torch, device, card)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -5093,6 +5369,9 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
         elif name in tp["onedir"]:     # one-direction shapes (phase 15)
             first = tp["onedir"][name][TRAIN_BATCHES[0]]
             second = tp["onedir"][name][TRAIN_BATCHES[1]]
+        elif name in wtrain["kernels"]:     # wavenet.train's (phase 16)
+            first = wtrain["kernels"][name][WN_TRAIN_SHAPES[0][0]]
+            second = wtrain["kernels"][name][WN_TRAIN_SHAPES[1][0]]
         elif name == "mlpg_oneshot":    # evaluation shapes (phase 9)
             first = mres[MLPG_SHAPES[0]]
             second = {"T={},L={}".format(*k): v for k, v in mres.items()
@@ -5121,6 +5400,7 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
                        name],
                    "wavenet_generate": remaining["wavenet"]["gen_launches"][
                        name],
+                   "wavenet_train_r9y9": wtrain["step"]["launches"][name],
                    **{"{}_train".format(k): remaining["atoms"][k][
                        "train_launches"][name]
                       for k in ("atom", "flat", "phrase")},
@@ -5208,6 +5488,9 @@ def _phases_6_to_9(torch, device, card, workdir, kres, tres,
             entry["narrow"] = tp["onedir"][name]["narrow"]
         if name == "bilstm_bwd_onedir":
             entry["tensor_parallel"] = tp
+        if name == "wavenet_gate_fwd":
+            entry["wavenet_train_step"] = {
+                k: v for k, v in wtrain["step"].items() if k != "launches"}
         if name == "bilstm_bwd":
             entry["narrow_training"] = {k: narrow[k] for k in (
                 "model", "B", "T", "losses", "step_ms", "frames_per_s")}

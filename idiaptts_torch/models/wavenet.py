@@ -6,11 +6,24 @@
   ``dilated``, ``cond``, ``skip``, ``res`` and ``post1`` layers take
   bf16 inputs and weights and give bf16 results, their biases added in
   bf16; the activations and the skip sum run in bf16; the residual
-  stream ``(x + res) / sqrt(2)`` is float32; ``post2`` is float32.  Each
-  bf16 step is emulated as a float32 op on bf16-rounded values, rounded
-  to bf16 after, so one code path serves the CPU and the card.  XLA
+  stream ``(x + res) / sqrt(2)`` is float32; ``post2`` is float32.  XLA
   computed this network without a Pallas kernel; it is the oracle of
-  the sampler's forced mode.
+  the sampler's forced mode.  Two paths, chosen by the device alone:
+
+  - on the CPU, the plain path: each bf16 step emulated as a float32 op
+    on bf16-rounded values, rounded to bf16 after (the oracle of the
+    card's path);
+  - on a CUDA device, the bf16 path: a block is one autograd function
+    (:class:`idiaptts_torch.ops.wavenet_block.Block`) of cuBLAS bf16
+    products with float32 accumulation, each rounded once to bf16 as the
+    plain path rounds it, and hand kernels for the passes between them:
+    the taps, the gate (bias adds, tanh, sigmoid, their product), the
+    skip and residual update, and their backward.  It saves bf16
+    tensors only: the taps, the gate's h and z, about 4.5 KB a sample
+    and a block at the r9y9 widths where the plain path saves ~12.
+
+  With tracing on, the blocks are a ``wavenet.stack`` span and the
+  output layers a ``wavenet.head`` span, on the device.
 - :func:`generate` and :class:`WaveNetVocoder` are autoregressive
   generation (the reference's ``incremental_forward``) through
   :mod:`idiaptts_torch.ops.cuda_wavenet`: the hand CUDA sampler on the
@@ -32,9 +45,10 @@ from torch import nn
 
 from idiaptts_torch.models.config import ModelConfig
 from idiaptts_torch.models.rnn_dyn import _lecun_normal_
-from idiaptts_torch.ops import cuda_wavenet
+from idiaptts_torch.ops import cuda_wavenet, wavenet_block
 from idiaptts_torch.ops.dispatch import resolve_device
 from idiaptts_torch.ops.mulaw import inv_mulaw_quantize
+from idiaptts_torch.utils import tracing
 
 INV_SQRT2 = cuda_wavenet.INV_SQRT2
 
@@ -47,6 +61,21 @@ def _bf(x):
 def _dense_bf16(x, kernel, bias):
     """``flax.linen.Dense(dtype=bfloat16)``: bf16(bf16(x . W) + bf16(b))."""
     return _bf(_bf(_bf(x) @ _bf(kernel)) + _bf(bias))
+
+
+def _dense(x, kernel, bias):
+    """:func:`_dense_bf16` on the path of ``x``: a bf16 product (float32
+    accumulation, rounded once) and bias add for a bf16 ``x``, the plain
+    path's float32 emulation for a float32 one."""
+    if x.dtype == torch.bfloat16:
+        return x @ kernel.to(torch.bfloat16) + bias.to(torch.bfloat16)
+    return _dense_bf16(x, kernel, bias)
+
+
+def _bf16_path(x):
+    """Whether the network runs its bf16 path on ``x``: on a CUDA device
+    alone."""
+    return x.device.type == "cuda"
 
 
 class _Dense(nn.Module):
@@ -122,6 +151,16 @@ class ResidualBlock(nn.Module):
         res = _dense_bf16(z, self.res.kernel, self.res.bias)
         return (x + res) * INV_SQRT2, skip
 
+    def forward_bf16(self, x, cond, skips):
+        """The card's path: x (B, T, R) float32, cond (B, T, Cp) bf16 (its
+        columns zero-padded to Cp >= C), skips the bf16 skip sum so far
+        (None before the first block) -> (x', skips')."""
+        return wavenet_block.Block.apply(
+            x, skips, cond, self.dilated.kernel, self.dilated.bias,
+            self.cond.kernel, self.cond.bias,
+            torch.cat([self.skip.kernel, self.res.kernel], 1),
+            torch.cat([self.skip.bias, self.res.bias]), self.dilation)
+
 
 class WaveNet(nn.Module):
     """Teacher-forced parallel WaveNet."""
@@ -152,16 +191,43 @@ class WaveNet(nn.Module):
 
     def forward(self, x_quantised, cond):
         """x_quantised (B, T) int mu-law inputs (shifted); cond (B, T, C)
-        upsampled conditioning.  Returns (B, T, out) float32 logits."""
+        upsampled conditioning.  Returns (B, T, out) float32 logits: the
+        bf16 path on a CUDA device, the plain path on the CPU."""
         x = self.input_embed.embedding[x_quantised.long()]
+        B, T = x_quantised.shape
+        bf16 = _bf16_path(x)
+        with tracing.span("wavenet.stack", device=x.device, B=int(B),
+                          T=int(T), layers=self.num_layers,
+                          path="bf16" if bf16 else "plain"):
+            skips = self._stack_bf16(x, cond) if bf16 else \
+                self._stack_plain(x, cond)
+        with tracing.span("wavenet.head", device=x.device):
+            h = torch.relu(_dense(torch.relu(skips), self.post1.kernel,
+                                  self.post1.bias))
+            return h.to(torch.float32) @ self.post2.kernel + self.post2.bias
+
+    def _blocks(self):
+        return [getattr(self, "block_{}".format(i))
+                for i in range(self.num_layers)]
+
+    def _stack_plain(self, x, cond):
         cond = cond.to(torch.float32)
         skips = None
-        for i in range(self.num_layers):
-            x, skip = getattr(self, "block_{}".format(i))(x, cond)
+        for block in self._blocks():
+            x, skip = block(x, cond)
             skips = skip if skips is None else _bf(skips + skip)
-        h = torch.relu(skips)
-        h = torch.relu(_dense_bf16(h, self.post1.kernel, self.post1.bias))
-        return h @ self.post2.kernel + self.post2.bias
+        return skips
+
+    def _stack_bf16(self, x, cond):
+        # One bf16 copy of the conditioning for every block, its columns
+        # zero-padded to a multiple of 8 (16-byte rows for cuBLAS).
+        cond = cond.to(torch.bfloat16)
+        C = cond.shape[-1]
+        cond = nn.functional.pad(cond, (0, -C % 8))
+        skips = None
+        for block in self._blocks():
+            x, skips = block.forward_bf16(x, cond, skips)
+        return skips
 
 
 class WaveNetWrapper(nn.Module):

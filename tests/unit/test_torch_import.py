@@ -30,6 +30,8 @@ MODULES = [
     "idiaptts_torch.ops.audio_io",
     "idiaptts_torch.ops.interpolation",
     "idiaptts_torch.ops.cuda_wavenet",
+    "idiaptts_torch.ops.wavenet_gate",
+    "idiaptts_torch.ops.wavenet_block",
     "idiaptts_torch.models.config",
     "idiaptts_torch.models.losses",
     "idiaptts_torch.models.named",
