@@ -240,10 +240,13 @@ other error raises at once):
    wrappers against their plain versions on the same card tensors (the
    gate's z and dh within one bf16 ulp, everything else ``torch.equal``),
    with CUDA-event times for both and each kernel's bytes bound.  Then
-   one ``ModularModelHandler`` step of the r9y9 WaveNet (24 layers) on 32
-   crops of 8000 samples, the counters reset just before and read just
-   after: each kernel launches once a block; the step's ms and peak
-   memory.  ``chip_smoke.py --phase16`` runs phases 1, 2 and 16 alone.
+   ``ModularModelHandler`` steps of the r9y9 WaveNet (24 layers) on 32
+   crops of 8000 samples, the block stack as CUDA graphs: one step
+   captures, the next replays with the counters reset just before and
+   read just after (each kernel launches once a block, credited from
+   the replays); the graphed step's ms beside the eager step's, the
+   captures and replays, and the peak memory.  ``chip_smoke.py
+   --phase16`` runs phases 1, 2 and 16 alone.
 
 The last three lines of standard output are the kernels JSON (every
 kernel with its bound, its plain version's and the library call's time),
@@ -5111,13 +5114,17 @@ def wavenet_train_step(torch, device, card, seed=21):
     """Phase 16 (b): ModularModelHandler steps of the r9y9 WaveNet on
     wavenet.train's batch (32 seeded crops of ``WN_TRAIN_CROP`` samples,
     bucketed to 8192), Adam and the masked cross-entropy as
-    WaveNetVocoderTrainer sets them: one warm-up step, one counted step
-    (every kernel of ``WN_TRAIN_KERNELS`` once a block), then three timed
-    with CUDA events, and the peak memory."""
+    WaveNetVocoderTrainer sets them.  Graphed (the block stack's CUDA
+    graphs): one step that captures, one counted step that replays
+    (every kernel of ``WN_TRAIN_KERNELS`` once a block, credited from
+    the replays), three timed with CUDA events, the captures and replays,
+    and the peak memory allocated and reserved.  Then eager (the graphs'
+    budget 0): one warm-up step and three timed."""
     from idiaptts_torch.data.dataset import collate_batch
     from idiaptts_torch.hparams import ExtendedHParams
     from idiaptts_torch.models.losses import NamedLoss
-    from idiaptts_torch.models.wavenet import WaveNetWrapper
+    from idiaptts_torch.models.wavenet import WaveNet, WaveNetWrapper
+    from idiaptts_torch.ops import cuda_graph
     from idiaptts_torch.train.handler import ModularModelHandler
     B, T = WN_TRAIN_SHAPES[0][:2]
     handler = ModularModelHandler(device=device)
@@ -5130,6 +5137,7 @@ def wavenet_train_step(torch, device, card, seed=21):
     handler.set_losses([NamedLoss.Config(
         "ce", "CrossEntropyLoss", ("pred_logits", "target_quantised"),
         seq_mask="_seq_mask", reduction="mean")])
+    net = next(m for m in handler.model.modules() if isinstance(m, WaveNet))
     rng = np.random.default_rng(seed)
     C, Q = WN_R9Y9["cond_channels"], WN_R9Y9["out_channels"]
     batch = collate_batch([
@@ -5140,34 +5148,46 @@ def wavenet_train_step(torch, device, card, seed=21):
     if batch["cond_features"].shape[1] != T:
         fail("phase 16: the crops were bucketed to {}, not {}".format(
             batch["cond_features"].shape[1], T))
-    losses = [handler.process_batches([batch])[0]]
     torch.cuda.reset_peak_memory_stats(device)
+    losses = [handler.process_batches([batch])[0]]
     loss, launches = counted(torch, lambda: handler.process_batches(
         [batch])[0])
     losses.append(loss)
     peak = torch.cuda.max_memory_allocated(device)
+    reserved = torch.cuda.max_memory_reserved(device)
     ms = cuda_ms(torch, lambda: handler.process_batches([batch]), 3)
+    graphs = net.graph_counts()
+    # Eager: a new cache that captures nothing (the captures' memory
+    # goes with the old one).
+    net._graphs = cuda_graph.GraphCache(budget=0)
+    torch.cuda.empty_cache()
+    eager_ms = cuda_ms(torch, lambda: handler.process_batches([batch]), 3)
     layers = WN_R9Y9["num_layers"]
     wrong = {name: launches.get(name, 0) for name in WN_TRAIN_KERNELS
              if launches.get(name, 0) != layers}
     if wrong:
         fail("phase 16: WaveNet kernels not launched once a block ({}) in "
-             "a train step: {}".format(layers, wrong))
+             "a replayed train step: {}".format(layers, wrong))
+    if graphs != {"captures": 1, "replays": 5, "eager": 0}:
+        fail("phase 16: the graphed steps did not capture once and replay "
+             "after: {}".format(graphs))
     if not all(np.isfinite(losses)):
         fail("phase 16: a WaveNet train step's loss is not finite: "
              "{}".format(losses))
     samples = B * WN_TRAIN_CROP
-    log("  r9y9 WaveNet train step B={} T={}: losses {} | {:.2f} ms, {:.0f} "
-        "samples/s | peak {:.2f} GB | launches {} [{}]".format(
+    log("  r9y9 WaveNet train step B={} T={}: losses {} | graphed {:.2f} "
+        "ms, {:.0f} samples/s | eager {:.2f} ms | graphs {} | peak {:.2f} "
+        "GB allocated, {:.2f} GB reserved | launches {} [{}]".format(
             B, T, ["{:.4f}".format(v) for v in losses], ms,
-            samples / (ms / 1e3), peak / 1e9,
+            samples / (ms / 1e3), eager_ms, json.dumps(graphs), peak / 1e9,
+            reserved / 1e9,
             json.dumps({n: launches.get(n, 0) for n in WN_TRAIN_KERNELS}),
             card))
-    del handler, batch
+    del handler, batch, net
     torch.cuda.empty_cache()
-    return dict(B=B, T=T, losses=losses, ms=ms,
+    return dict(B=B, T=T, losses=losses, ms=ms, eager_ms=eager_ms,
                 samples_per_s=samples / (ms / 1e3), peak_bytes=peak,
-                launches=launches)
+                reserved_bytes=reserved, graphs=graphs, launches=launches)
 
 
 def wavenet_train_kernels(torch, device, card):

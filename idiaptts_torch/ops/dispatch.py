@@ -20,11 +20,16 @@ raises :class:`KernelError`.
 
 Each kernel is a :class:`Kernel` object with a plain integer
 ``launches`` counter that goes up by one per successful launch, so a
-run can show that its main path went through the kernels.  With
+run can show that its main path went through the kernels.  A launch
+made while a CUDA graph is captured (inside :func:`capturing`) runs
+nothing then: it is counted for the graph instead, and each replay of
+the graph adds its launches to the counters (:func:`credit`).  With
 :mod:`idiaptts_torch.utils.tracing` on, each call is a
 ``dispatch.launch`` span (the host's time in it) naming its kernel.
 """
 
+import collections
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -49,6 +54,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _lock = threading.Lock()
 _lib = None
 _kernels = []
+# {Kernel: launches} of the CUDA graph being captured, else None.
+_captured = None
 # Filled by the build: seconds taken (0.0 when the library was already
 # built), the library path and nvcc's output (ptxas register and shared
 # memory report per kernel).
@@ -214,7 +221,10 @@ class Kernel:
                                   .format(self.name,
                                           lib.idt_error_string(err)
                                           .decode(), err))
-            self.launches += 1
+            if _captured is not None:
+                _captured[self] += 1
+            else:
+                self.launches += 1
 
 
 class HostEntry:
@@ -239,6 +249,26 @@ class HostEntry:
         if err != 0:
             raise KernelError("{} failed: {} (cuda error {})".format(
                 self.symbol, lib.idt_error_string(err).decode(), err))
+
+
+@contextlib.contextmanager
+def capturing():
+    """Count the launches made inside, from any thread (a CUDA graph's
+    capture, in which they run nothing), apart from the counters; yields
+    the ``{Kernel: launches}`` that :func:`credit` adds for each
+    replay."""
+    global _captured
+    _captured = collections.Counter()
+    try:
+        yield _captured
+    finally:
+        _captured = None
+
+
+def credit(launches):
+    """Count one replay of a graph captured with ``launches``."""
+    for kernel, n in launches.items():
+        kernel.launches += n
 
 
 def reset_counts():

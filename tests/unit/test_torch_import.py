@@ -32,6 +32,7 @@ MODULES = [
     "idiaptts_torch.ops.cuda_wavenet",
     "idiaptts_torch.ops.wavenet_gate",
     "idiaptts_torch.ops.wavenet_block",
+    "idiaptts_torch.ops.cuda_graph",
     "idiaptts_torch.models.config",
     "idiaptts_torch.models.losses",
     "idiaptts_torch.models.named",
